@@ -2,10 +2,13 @@
 
 Builds the hand-written CUDA kernels from ``ctc_tpu_torch/csrc/``, holds
 each against its plain PyTorch version on the card, trains the feature-mode
-NoBlankCTC LSTM head through the command-line entry point at full width,
-checks that the training went through the kernels, and times each kernel
-beside its plain version and its bound.  Prints one JSON line per phase; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
+LSTM head through the command-line entry point at full width with the
+NoBlankCTC loss and with the blank CTC loss, decodes from the checkpoints
+they wrote (greedy, beam, Viterbi alignment), checks that each run went
+through its kernels, and times each kernel beside its plain version, its
+bound and, where one exists, the PyTorch call that computes the same
+function.  Prints one JSON line per phase; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,6 +62,16 @@ KERNELS = {
         "source": "ctc_tpu_torch/csrc/noblank_lattice.cu",
         "replaces": "ctc_tpu/ops/lattice_pallas.py:180",
     },
+    "blank_lattice_forward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/blank_lattice.cu",
+        "replaces": "ctc_tpu/ops/blank_lattice_pallas.py:61",
+    },
+    "blank_lattice_backward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/blank_lattice.cu",
+        "replaces": "ctc_tpu/ops/blank_lattice_pallas.py:95",
+    },
 }
 
 # main path: the CLI's synthetic run at the LSTM head's full width
@@ -66,6 +80,13 @@ MAIN_ARGS = ["--dataset", "synthetic", "--batch-size", "256",
              "--epochs", "2", "--device", "cuda"]
 MAIN_SHAPE = (10, 256, 10)  # T, B, L (L = max path = temporal)
 BENCH_SHAPE = (128, 1024, 157)  # bench.py's no-blank lattice shape
+# the blank main path: the same run under --loss blank, a c_class = 157
+# head (charades_ver2_c_class's combined classes), paths of at most T/2
+BLANK_ARGS = MAIN_ARGS + ["--loss", "blank"]
+BLANK_CLASSES = 157
+BLANK_MAIN_SHAPE = (10, 256, 5)  # T, B, L (S = 2L+1 = 11)
+BLANK_BENCH_SHAPE = (128, 1024, 20)  # bench.py:205's blank shape, S = 41
+VAL_WINDOWS = 2 * 256  # the synthetic loader's 2 val batches
 FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 
 
@@ -193,25 +214,156 @@ def phase_parity():
     return errs
 
 
-def phase_main_path():
-    """The CLI's training run on the card; returns the launch counts."""
+def reset_counts() -> None:
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
+
+    lc.reset_launch_counts()
+    bl.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
+
+    return {**lc.launch_counts, **bl.launch_counts}
+
+
+def expect_counts(noblank=(0, 0), blank=(0, 0)) -> dict:
+    """The launch counts a run must show: (forward, backward) of each
+    kernel pair."""
+    return {"noblank_lattice_forward": noblank[0],
+            "noblank_lattice_backward": noblank[1],
+            "blank_lattice_forward": blank[0],
+            "blank_lattice_backward": blank[1]}
+
+
+def make_blank_case(gen, shape, *, device, classes=BLANK_CLASSES,
+                    repeats=False, label0=False, zero_len=False, short=False,
+                    infeasible=False):
+    """Raw gathered emissions ``[T, B, S]`` from random logits, the uint8
+    skip mask, int32 lengths and a cotangent, on ``device``.  Sample 0 has
+    the full T and L; the flags add repeated labels, labels equal to the
+    blank id 0, zero-length targets, input lengths 1 and 2, and one
+    infeasible sample (fewer frames than its labels need)."""
+    import torch
+
+    from ctc_tpu_torch.losses.blank import blank_emissions_and_skip
+
+    T, B, L = shape
+    logits = torch.randn((T, B, classes), generator=gen)
+    targets = torch.randint(1, classes, (B, L), generator=gen)
+    if repeats:
+        targets[:, 1::2] = targets[:, 0::2][:, : targets[:, 1::2].shape[1]]
+    if label0:
+        targets[1::3, 0] = 0
+    # every sample gets frames for its labels and forced blanks (2L + 1)
+    inlen = torch.randint(min(2 * L + 1, T), T + 1, (B,), generator=gen)
+    tgt = torch.randint(0 if zero_len else 1, L + 1, (B,), generator=gen)
+    inlen[0], tgt[0] = T, L
+    if short and B >= 3:
+        inlen[1], tgt[1] = 1, min(int(tgt[1]), 1)
+        inlen[2], tgt[2] = 2, min(int(tgt[2]), 1)
+    if infeasible and B >= 4:
+        inlen[3], tgt[3] = max(L // 2, 1), L
+    if zero_len and B >= 5:
+        tgt[4] = 0
+    em, skip = blank_emissions_and_skip(logits, targets, 0)
+    cot = torch.randn((B,), generator=gen)
+    return [x.to(device) for x in (em.contiguous(), skip.to(torch.uint8),
+                                   inlen.int(), tgt.int(), cot)]
+
+
+def phase_parity_blank():
+    """Each blank kernel against the plain version on the card: NLL,
+    reachable alpha cells, d nll / d em under a random cotangent, the
+    autograd op, and exact zeros at t >= input length."""
+    import torch
+
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    every = dict(repeats=True, label0=True, zero_len=True, short=True,
+                 infeasible=True)
+    cases = [
+        ("main_path", BLANK_MAIN_SHAPE, {}),
+        ("bench", BLANK_BENCH_SHAPE, {}),
+        ("small", (16, 4, 5), {}),
+        ("odd", (37, 11, 9), {}),
+        ("repeats", (24, 6, 6), dict(repeats=True)),
+        ("label_equal_blank", (20, 6, 4), dict(label0=True)),
+        ("zero_length", (12, 6, 4), dict(zero_len=True)),
+        ("input_lengths_1_2", (6, 5, 2), dict(short=True)),
+        ("infeasible", (16, 5, 5), dict(infeasible=True)),
+        ("all_edges", (33, 13, 7), every),
+        ("L1", (9, 3, 1), {}),
+        ("wide_S", (20, 3, 800), {}),  # S = 1601, above one block
+    ]
+    errs = {}
+    for label, shape, flags in cases:
+        em, skip, inlen, tgt, cot = make_blank_case(gen, shape, device=dev,
+                                                    **flags)
+        alpha_k = bl.blank_alpha_kernel(em, skip)
+        alpha_p = bl.blank_alpha_plain(em, skip)
+        nll_k = bl.gather_nll(alpha_k, inlen, tgt)
+        nll_p = bl.gather_nll(alpha_p, inlen, tgt)
+        g_k = bl.blank_grad_kernel(alpha_k, skip, inlen, tgt, cot)
+        g_p = bl.blank_grad_plain(alpha_p, skip, inlen, tgt, cot)
+        torch.cuda.synchronize()
+        reach = alpha_p > -1e29  # unreachable cells hold ~-1e30
+        check_close(f"blank {label} nll", nll_k, nll_p, LOSS_RTOL, LOSS_ATOL)
+        check_close(f"blank {label} alpha", alpha_k[reach], alpha_p[reach],
+                    LOSS_RTOL, LOSS_ATOL)
+        check_close(f"blank {label} grad", g_k, g_p, GRAD_RTOL, GRAD_ATOL)
+        t_idx = torch.arange(shape[0], device=dev)[:, None]
+        past = (t_idx >= inlen[None, :].long())[:, :, None].expand_as(g_k)
+        if bool((g_k[past] != 0).any()):
+            fail(f"blank {label}: kernel gradient nonzero at "
+                 f"t >= input_length")
+        e1 = em.clone().requires_grad_()
+        e2 = em.clone().requires_grad_()
+        (bl.blank_lattice_nll_cuda(e1, skip, inlen, tgt) * cot).sum().backward()
+        (bl.blank_lattice_nll_plain(e2, skip, inlen, tgt) * cot).sum(
+        ).backward()
+        check_close(f"blank {label} autograd grad", e1.grad, e2.grad,
+                    GRAD_RTOL, GRAD_ATOL)
+        row = {
+            "phase": "parity_blank", "case": label,
+            "shape_TBL": list(shape), "S": 2 * shape[2] + 1,
+            "nll_max_abs_dev": max_dev(nll_k, nll_p),
+            "nll_max_rel_dev": float(((nll_k - nll_p).abs()
+                                      / nll_p.abs().clamp_min(1e-30)).max()),
+            "alpha_reachable_max_abs_dev": max_dev(alpha_k[reach],
+                                                   alpha_p[reach]),
+            "grad_max_abs_dev": max_dev(g_k, g_p),
+            "autograd_grad_max_abs_dev": max_dev(e1.grad, e2.grad),
+            "sentinel_scale_samples": int((nll_p.abs() > 1e29).sum()),
+            "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL],
+            "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL],
+        }
+        emit(row)
+        errs[label] = row
+    return errs
+
+
+def phase_main_path(cache):
+    """The CLI's training run on the card, its checkpoint left in
+    ``cache``; returns the launch counts."""
     import torch
 
     from ctc_tpu_torch.cli.main import main
-    from ctc_tpu_torch.ops import lattice_cuda as lc
 
-    with tempfile.TemporaryDirectory() as cache:
-        lc.reset_launch_counts()
-        t0 = time.perf_counter()
-        history = main(MAIN_ARGS + ["--cache-dir", cache])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(lc.launch_counts)
-        files = sorted(os.listdir(os.path.join(cache, "test")))
+    reset_counts()
+    t0 = time.perf_counter()
+    history = main(MAIN_ARGS + ["--cache-dir", cache])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    files = sorted(os.listdir(os.path.join(cache, "test")))
     epochs = len(history)
     train_steps, eval_steps = 8 * epochs, 2 * epochs  # the synthetic loader
-    want = {"noblank_lattice_forward": train_steps + eval_steps,
-            "noblank_lattice_backward": train_steps}
+    want = expect_counts(noblank=(train_steps + eval_steps, train_steps))
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     losses = [h["train"]["loss"] for h in history]
@@ -226,6 +378,85 @@ def phase_main_path():
           "step_s_host_avg": [h["train"]["time"] for h in history],
           "files": files})
     return launches
+
+
+def phase_main_path_blank(cache):
+    """The CLI's --loss blank training run on the card, its checkpoint left
+    in ``cache``; returns the launch counts."""
+    import torch
+
+    from ctc_tpu_torch.cli.main import main
+
+    reset_counts()
+    t0 = time.perf_counter()
+    history = main(BLANK_ARGS + ["--cache-dir", cache])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    epochs = len(history)
+    train_steps, eval_steps = 8 * epochs, 2 * epochs  # the synthetic loader
+    want = expect_counts(blank=(train_steps + eval_steps, train_steps))
+    if launches != want:
+        fail(f"blank launch counts {launches}, expected {want}")
+    losses = [h["train"]["loss"] for h in history]
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"non-finite blank training loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"blank training loss did not fall: {losses}")
+    emit({"phase": "main_path_blank", "argv": BLANK_ARGS,
+          "seconds": seconds, "train_steps": train_steps,
+          "eval_steps": eval_steps, "launches": launches,
+          "train_loss_by_epoch": losses,
+          "val_loss_by_epoch": [h["val"]["loss"] for h in history],
+          "step_s_host_avg": [h["train"]["time"] for h in history]})
+    return launches
+
+
+def phase_decode(blank_cache, noblank_cache):
+    """--evaluate --decode (greedy, then --decode-beam 4) from the blank
+    run's checkpoint, and --evaluate --decode-align from the no-blank
+    run's: one CSV row per val window, each run through its kernels."""
+    import csv
+
+    import torch
+
+    from ctc_tpu_torch.cli.main import main
+
+    runs = [
+        ("greedy", BLANK_ARGS, blank_cache, ["--decode"], "decoded_csv",
+         expect_counts(blank=(2, 0))),
+        ("beam4", BLANK_ARGS, blank_cache, ["--decode", "--decode-beam", "4"],
+         "decoded_csv", expect_counts(blank=(2, 0))),
+        ("align", MAIN_ARGS, noblank_cache, ["--decode-align"],
+         "alignment_csv", expect_counts(noblank=(2, 0))),
+    ]
+    for label, args, cache, flags, key, want in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = main(args + ["--cache-dir", cache, "--evaluate",
+                               "--resume", os.path.join(cache, "test")]
+                       + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        if launches != want:
+            fail(f"decode {label}: launch counts {launches}, expected {want}")
+        with open(metrics[key], newline="") as f:
+            rows = list(csv.reader(f))
+        if len(rows) - 1 != VAL_WINDOWS:
+            fail(f"decode {label}: {len(rows) - 1} rows, expected "
+                 f"{VAL_WINDOWS}")
+        if label == "align":
+            for row in rows[1:]:
+                ali = [int(x) for x in row[4].split()]
+                steps = {b - a for a, b in zip(ali, ali[1:])}
+                if len(ali) != int(row[2]) or ali[0] != 0 or steps - {0, 1}:
+                    fail(f"decode align: not a stay/advance path: {row}")
+        emit({"phase": "decode", "run": label, "flags": flags,
+              "seconds": seconds, "launches": launches,
+              "val_loss": metrics["loss"], "rows": len(rows) - 1,
+              "file": os.path.basename(metrics[key]),
+              "first_rows": rows[1:4]})
 
 
 def phase_step_vs_cpu():
@@ -281,7 +512,7 @@ def phase_step_vs_cpu():
                         "zero_grad_param_atol": 2 * lr}})
 
 
-def phase_profile():
+def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE):
     """Where a main-path train step's time goes: the step's wall time with
     a synchronize at the end, then a torch.profiler window over the same
     steps for device time by kernel and the device's busy share."""
@@ -294,15 +525,15 @@ def phase_profile():
         TrainState, make_train_step, to_device, torch_style_adam,
     )
 
-    T, B, _ = MAIN_SHAPE
+    T, B, L = shape
     batch = to_device(synthetic_feature_batches(
         num_batches=1, batch_size=B, temporal=T, feat_dim=1024,
-        num_classes=33, seed=4)[0], "cuda")
-    model = LSTMHead(1024, 33)
+        num_classes=classes, max_path=L, seed=4)[0], "cuda")
+    model = LSTMHead(1024, classes)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to("cuda")
     state = TrainState(model, torch_style_adam(model.parameters(), 1e-4))
-    step = make_train_step("noblank", None, 0.0, lambda k: 1e-3)
+    step = make_train_step(loss, None, 0.0, lambda k: 1e-3)
     gen = torch.Generator(device="cuda").manual_seed(0)
     steps = 50
     for _ in range(5):
@@ -324,8 +555,10 @@ def phase_profile():
     events = device_kernels(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:10]
-    lattice_us = sum(dev_us(e) for e in events if "noblank" in e.key)
-    emit({"phase": "profile", "shape_TBL": list(MAIN_SHAPE),
+    symbol = re.compile(rf"(?<![a-z]){loss}_(forward|backward)_kernel")
+    lattice_us = sum(dev_us(e) for e in events if symbol.search(e.key))
+    emit({"phase": "profile", "loss": loss, "classes": classes,
+          "shape_TBL": list(shape),
           "step_ms": step_ms, "profiled_window_ms": window_ms,
           "device_ms_per_step": device_ms / steps if events else None,
           "device_busy_share": device_ms / window_ms if events else None,
@@ -449,13 +682,140 @@ def phase_times(card, name):
     return result
 
 
+def phase_times_blank(card, name):
+    """The blank kernels' and plain versions' times in turns at the
+    main-path and bench shapes, each kernel's bound, and the yardstick:
+    ``torch.nn.functional.ctc_loss`` on the same [T, B, 157] log-probs
+    (forward; backward alone) beside the port's emission gather + kernels
+    for the same work."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctc_tpu_torch.losses.blank import blank_emissions_and_skip, ctc_loss
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+
+    gen = torch.Generator().manual_seed(5)
+    rate = hbm_rate(name)
+    result = {}
+    for label, shape in (("main_path", BLANK_MAIN_SHAPE),
+                         ("bench", BLANK_BENCH_SHAPE)):
+        T, B, L = shape
+        S = 2 * L + 1
+        logits = torch.randn((T, B, BLANK_CLASSES), generator=gen)
+        lp = torch.log_softmax(logits, dim=2).to("cuda")
+        # distinct adjacent labels, every sample feasible at its length
+        targets = torch.randint(1, BLANK_CLASSES, (B, L), generator=gen)
+        targets[:, 1:] = torch.where(targets[:, 1:] == targets[:, :-1],
+                                     targets[:, 1:] % (BLANK_CLASSES - 1) + 1,
+                                     targets[:, 1:])
+        targets = targets.to("cuda")
+        inlen = torch.randint(min(2 * L + 1, T), T + 1, (B,), generator=gen)
+        tgt = torch.randint(1, L + 1, (B,), generator=gen)
+        inlen[0], tgt[0] = T, L
+        inlen, tgt = inlen.int().to("cuda"), tgt.int().to("cuda")
+        cot = torch.randn((B,), generator=gen).to("cuda")
+        em, skip = blank_emissions_and_skip(lp, targets, 0)
+        em, skip = em.contiguous(), skip.to(torch.uint8)
+        alpha = bl.blank_alpha_kernel(em, skip)
+        cells = T * B * S
+        # the yardstick on the same log-probs: forward, and backward alone
+        lp_req = lp.clone().requires_grad_()
+        lib_loss = F.ctc_loss(lp_req, targets, inlen, tgt, blank=0,
+                              reduction="none")
+        lib_sum = (lib_loss * cot).sum()
+        iters = 200 if label == "main_path" else 50
+        lib_fwd = time_ms(lambda: F.ctc_loss(lp, targets, inlen, tgt,
+                                             blank=0, reduction="none"),
+                          iters)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_sum, lp_req,
+                                                      retain_graph=True),
+                          iters)
+        nll_port = ctc_loss(lp, targets, inlen, tgt, normalize=False,
+                            reduction="none")
+        check_close(f"blank {label} port vs F.ctc_loss", nll_port,
+                    lib_loss.detach(), 1e-4, 1e-4)
+
+        def port_fwd():
+            with torch.no_grad():
+                ctc_loss(lp, targets, inlen, tgt, normalize=False,
+                         reduction="none")
+
+        def port_fwd_bwd():
+            x = lp.clone().requires_grad_()
+            (ctc_loss(x, targets, inlen, tgt, normalize=False,
+                      reduction="none") * cot).sum().backward()
+
+        def lib_fwd_bwd():
+            x = lp.clone().requires_grad_()
+            (F.ctc_loss(x, targets, inlen, tgt, blank=0, reduction="none")
+             * cot).sum().backward()
+
+        pair = {
+            "port_fwd_ms": time_ms(port_fwd, iters),
+            "library_fwd_ms": lib_fwd,
+            "port_fwd_bwd_ms": time_ms(port_fwd_bwd, iters),
+            "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, iters),
+            "library_bwd_ms": lib_bwd,
+        }
+        fns = {
+            "blank_lattice_forward": (
+                "blank_forward_kernel",
+                lambda: bl.blank_alpha_kernel(em, skip),
+                lambda: bl.blank_alpha_plain(em, skip),
+                # em in, skip mask in, alpha out
+                8 * cells + B * S,
+                # two log-adds (max, sub, abs, exp, log1p, add), the skip
+                # select, the emission add
+                14 * cells,
+                lib_fwd,
+            ),
+            "blank_lattice_backward": (
+                "blank_backward_kernel",
+                lambda: bl.blank_grad_kernel(alpha, skip, inlen, tgt, cot),
+                lambda: bl.blank_grad_plain(alpha, skip, inlen, tgt, cot),
+                # alpha in, g out, skip mask in, three [B] vectors in
+                8 * cells + B * S + 12 * B,
+                # three 3-way log-adds (2 x 6), three sub+exp weights, three
+                # mul, two add, the inject select and add
+                49 * cells,
+                lib_bwd,
+            ),
+        }
+        for kname, (symbol, kernel, plain, nbytes, nops, lib) in fns.items():
+            p1 = time_ms(plain, max(iters // 10, 3))
+            k1 = time_ms(kernel, iters)
+            k2 = time_ms(kernel, iters)
+            p2 = time_ms(plain, max(iters // 10, 3))
+            device_ms = kernel_device_ms(kernel, symbol)
+            bytes_ms = nbytes / rate * 1e3
+            ops_ms = nops / FP32_PEAK * 1e3
+            row = {
+                "phase": "times", "kernel": kname, "shape": label,
+                "shape_TBL": list(shape), "S": S, "classes": BLANK_CLASSES,
+                "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                "kernel_device_ms": device_ms,
+                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": nops,
+                "hbm_bytes_per_s": rate, "fp32_ops_per_s": FP32_PEAK,
+                "library_ms": lib,
+                "library_call": ("F.ctc_loss forward" if kname.endswith(
+                    "forward") else "F.ctc_loss backward alone"),
+                **pair, "launches_per_step": 1, "card": card,
+            }
+            emit(row)
+            result[(kname, label)] = row
+    return result
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     try:
-        from ctc_tpu_torch.ops import lattice_cuda  # noqa: F401
+        from ctc_tpu_torch.ops import blank_lattice_cuda  # noqa: F401
     except ImportError as e:
         fail(f"run from the repository root; ctc_tpu_torch not importable "
              f"({e})")
@@ -465,24 +825,32 @@ def main() -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
     errs = phase_parity()
-    launches = phase_main_path()
+    blank_errs = phase_parity_blank()
+    with tempfile.TemporaryDirectory() as work:
+        noblank_cache = os.path.join(work, "noblank")
+        blank_cache = os.path.join(work, "blank")
+        launches = phase_main_path(noblank_cache)
+        blank_launches = phase_main_path_blank(blank_cache)
+        phase_decode(blank_cache, noblank_cache)
     phase_step_vs_cpu()
     phase_profile()
-    times = phase_times(card, name)
-    main_errs = errs["main_path"]
+    phase_profile("blank", BLANK_CLASSES, BLANK_MAIN_SHAPE)
+    times = {**phase_times(card, name), **phase_times_blank(card, name)}
     kernels = []
     for kname, meta in KERNELS.items():
         t = times[(kname, "main_path")]
+        blank = kname.startswith("blank")
+        main_errs = (blank_errs if blank else errs)["main_path"]
         kernels.append({
             "name": kname, **meta,
-            "launches": launches[kname],
+            "launches": (blank_launches if blank else launches)[kname],
             "max_abs_err": (main_errs["nll_max_abs_dev"]
                             if kname.endswith("forward")
                             else main_errs["grad_max_abs_dev"]),
             "ms": t["kernel_ms"], "device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t["library_ms"],
         })
     emit({"kernels": kernels})
     print(card, flush=True)

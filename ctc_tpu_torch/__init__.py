@@ -2,8 +2,9 @@
 
 The package keeps ``ctc_tpu``'s module names so each piece has a visible
 counterpart.  It imports ``torch`` and numpy only: never JAX and nothing of
-``ctc_tpu``.  The blank-free lattice DP runs in two hand-written CUDA kernels
-(``csrc/noblank_lattice.cu``) on a CUDA tensor and in a plain PyTorch version
+``ctc_tpu``.  The blank-free and the blank CTC lattice DPs each run in two
+hand-written CUDA kernels (``csrc/noblank_lattice.cu``,
+``csrc/blank_lattice.cu``) on a CUDA tensor and in a plain PyTorch version
 on a CPU tensor.  Entry points run on ``cuda`` unless the caller asks for
 the CPU.
 """

@@ -1,5 +1,5 @@
-"""Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path and
-``--evaluate``).
+"""Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path,
+``--evaluate`` and its ``--decode`` / ``--decode-beam`` / ``--decode-align``).
 
 Seed, tee, build the model and the trainer, build the data loaders
 (string-keyed dataset registry), optionally resume, then either validate
@@ -30,9 +30,27 @@ def get_dataset(cfg):
     return module.get(cfg)
 
 
+def check_decode_flags(cfg) -> None:
+    """Refuse a decode flag the loss cannot serve, before any eval work.
+
+    Gated on the flags that make decode run at all, so a training run
+    carrying a stale decode flag keeps working."""
+    if cfg.evaluate and cfg.decode and cfg.decode_beam and cfg.loss != "blank":
+        raise SystemExit(
+            "--decode-beam needs a blank symbol: use --loss blank"
+        )
+    if (cfg.evaluate and cfg.decode_align
+            and cfg.loss not in ("noblank", "binary")):
+        raise SystemExit(
+            "--decode-align force-aligns the blank-free lattice: "
+            "use --loss noblank or binary"
+        )
+
+
 def main(argv=None):
     cfg = config_lib.parse(argv)
     config_lib.reject_unported(cfg)
+    check_decode_flags(cfg)
     device = resolve_device(cfg.device)
     Tee(os.path.join(cfg.cache, "log.txt"))
     print(f"config: {cfg}")
@@ -74,6 +92,31 @@ def main(argv=None):
     if cfg.evaluate:
         metrics = trainer.validate(state, val_batches, epoch=start_epoch)
         print(f"evaluate: {metrics}")
+        if cfg.decode:
+            # decoded transition paths per val window (blank collapse only
+            # for the blank loss)
+            from ctc_tpu_torch.eval.video import decode_windows
+
+            out_csv = os.path.join(cfg.cache, "decoded_predictions.csv")
+            dec = decode_windows(
+                model, val_batches,
+                blank=(0 if cfg.loss == "blank" else -1),
+                out_csv=out_csv, beam_width=cfg.decode_beam,
+            )
+            print(f"decoded transition paths: {len(dec['lengths'])} windows "
+                  f"-> {out_csv}")
+            metrics["decoded_csv"] = out_csv
+        if cfg.decode_align:
+            # forced alignment of the TARGET paths (Viterbi over the
+            # trained blank-free lattice)
+            from ctc_tpu_torch.eval.video import align_windows
+
+            align_csv = os.path.join(cfg.cache, "decoded_alignment.csv")
+            ali = align_windows(model, val_batches, loss_kind=cfg.loss,
+                                out_csv=align_csv)
+            print(f"aligned target paths: {len(ali['score'])} windows "
+                  f"-> {align_csv}")
+            metrics["alignment_csv"] = align_csv
         print("video eval skipped: not ported to ctc_tpu_torch yet "
               "(ROADMAP.md Queue 1 item 10)")
         return metrics

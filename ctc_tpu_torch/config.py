@@ -85,7 +85,7 @@ class Config:
     profile_dir: str = ""
 
     # loss / kernel selection
-    loss: str = "noblank"  # noblank | binary | ce | bce | mlce
+    loss: str = "noblank"  # noblank | binary | blank | ce | bce | mlce
     joint_object_weight: float = 1.0
     lattice_impl: str | None = None  # torch | cuda | None (by device)
     compute_dtype: str = "f32"
@@ -135,13 +135,9 @@ UNPORTED = (
     ("--max-restarts", lambda c: c.max_restarts > 0, "Queue 1 item 14"),
     ("--compute-dtype bf16", lambda c: c.compute_dtype != "f32",
      "Queue 1 item 16"),
-    ("--loss blank", lambda c: c.loss == "blank", "Queue 1 item 7"),
     ("--loss joint", lambda c: c.loss == "joint", "Queue 1 item 8"),
     ("--joint-object-weight", lambda c: c.joint_object_weight != 1.0,
      "Queue 1 item 8"),
-    ("--decode", lambda c: c.decode, "Queue 1 item 9"),
-    ("--decode-beam", lambda c: c.decode_beam > 0, "Queue 1 item 9"),
-    ("--decode-align", lambda c: c.decode_align, "Queue 1 item 9"),
     ("--video-eval", lambda c: c.video_eval, "Queue 1 item 10"),
     ("--transition-metrics", lambda c: c.transition_metrics,
      "Queue 1 item 10"),

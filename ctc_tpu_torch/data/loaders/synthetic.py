@@ -2,8 +2,9 @@
 single host).
 
 Follows the CLI's head-width convention: verb-index lattices (v_class),
-multi-hot object spaces (o_class).  Final-step losses (ce/bce/mlce) get the
-future label as the target instead of a lattice path.
+multi-hot object spaces (o_class), combined blank-CTC classes (c_class).
+Final-step losses (ce/bce/mlce) get the future label as the target instead
+of a lattice path.
 """
 
 from __future__ import annotations
@@ -35,9 +36,17 @@ def get(cfg):
     """``(train_batches, val_batches)``: 8 and 2 seeded batches of
     ``cfg.batch_size``."""
     temporal = max(cfg.temporal, 2)
+    # Blank CTC feasibility: a drawn label can equal 0 (the blank id), and
+    # the skip rule (z[s] != blank) forces such a label through the blank
+    # slot before it: one extra frame.  L <= T/2 keeps every target feasible
+    # (the reference's real datasets cap L well below T the same way); with
+    # L == T one sample per batch would be infeasible, with a
+    # sentinel-scale NLL.  max(.., 1), not 2: at temporal 2-3 a 2-label
+    # path would break L <= T/2 again.
     common = dict(
         batch_size=cfg.batch_size,
         temporal=temporal,
+        max_path=(max(temporal // 2, 1) if cfg.loss == "blank" else None),
         feat_dim=cfg.extract_feat_dim,
         num_classes=cfg.head_classes,
         binary=(cfg.loss in ("binary", "bce", "mlce")),

@@ -1,10 +1,11 @@
 """Public loss API (port of ``ctc_tpu/losses/__init__.py``).
 
 ``LOSS_FNS`` is the loss-kind registry the train and eval steps read.  The
-blank-CTC and joint (object, verb) losses are not ported yet: their entries
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+joint (object, verb) loss is not ported yet: its entry raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
+from ctc_tpu_torch.losses.blank import ctc_loss
 from ctc_tpu_torch.losses.classification import (
     bce_with_logits,
     cross_entropy,
@@ -43,7 +44,7 @@ def _not_ported(kind: str, item: str):
 LOSS_FNS = {
     "noblank": no_blank_ctc_loss,
     "binary": no_blank_binary_ctc_loss,
-    "blank": _not_ported("blank", "Queue 1 item 7"),
+    "blank": ctc_loss,
     "joint": _not_ported("joint", "Queue 1 item 8"),
     "ce": _final_step(cross_entropy),
     "bce": _final_step(bce_with_logits),
@@ -53,6 +54,7 @@ LOSS_FNS = {
 __all__ = [
     "no_blank_ctc_loss",
     "no_blank_binary_ctc_loss",
+    "ctc_loss",
     "multilabel_cross_entropy",
     "cross_entropy",
     "bce_with_logits",

@@ -1,5 +1,5 @@
-"""Lattice math: log-space helpers, emission scores, the lattice DP (CUDA
-kernels and their plain PyTorch version)."""
+"""Lattice math: log-space helpers, emission scores, the lattice DPs (CUDA
+kernels and their plain PyTorch versions)."""
 
 from ctc_tpu_torch.ops.logspace import (
     BCE_LOG_CLAMP,
@@ -15,6 +15,10 @@ from ctc_tpu_torch.ops.lattice_cuda import (
     noblank_lattice_nll_cuda,
     noblank_lattice_nll_plain,
 )
+from ctc_tpu_torch.ops.blank_lattice_cuda import (
+    blank_lattice_nll_cuda,
+    blank_lattice_nll_plain,
+)
 
 __all__ = [
     "BCE_LOG_CLAMP",
@@ -25,4 +29,6 @@ __all__ = [
     "gather_log_softmax_emissions",
     "noblank_lattice_nll_cuda",
     "noblank_lattice_nll_plain",
+    "blank_lattice_nll_cuda",
+    "blank_lattice_nll_plain",
 ]

@@ -38,6 +38,12 @@ SIGNATURES = {
         # alpha, inlen, tgt, nll_bar, g, T, B, L, stream
         "noblank_lattice_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
+    "blank_lattice.cu": {
+        # em, skip_ok, alpha, T, B, S, stream
+        "blank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
+        # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, stream
+        "blank_lattice_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Implementation dispatch for the lattice DP (port of
+"""Implementation dispatch for the lattice DPs (port of
 ``ctc_tpu/ops/dispatch.py``).
 
 ``'cuda'`` is the hand-written kernel pair and takes CUDA tensors only;
@@ -9,6 +9,10 @@ for a CUDA tensor, the plain version for a CPU tensor.
 
 from __future__ import annotations
 
+from ctc_tpu_torch.ops.blank_lattice_cuda import (
+    blank_lattice_nll_cuda,
+    blank_lattice_nll_plain,
+)
 from ctc_tpu_torch.ops.lattice_cuda import (
     noblank_lattice_nll_cuda,
     noblank_lattice_nll_plain,
@@ -23,13 +27,7 @@ def preferred_layout(implementation: str | None = None) -> str:
     return "tbl"
 
 
-def lattice_nll(emissions, input_lengths, target_lengths, *,
-                implementation: str | None = None, layout: str = "tbl"):
-    """Per-sample blank-free lattice NLL ``[B]``.
-
-    ``emissions`` are ``[T, B, L]`` for ``layout='tbl'`` or ``[T, L, B]``
-    for ``'tlb'``.
-    """
+def _pick(emissions, implementation, cuda_fn, plain_fn):
     if implementation is None:
         implementation = "cuda" if emissions.is_cuda else "torch"
     if implementation == "cuda":
@@ -38,11 +36,33 @@ def lattice_nll(emissions, input_lengths, target_lengths, *,
                 "implementation='cuda' needs CUDA tensors, got emissions on "
                 f"{emissions.device}"
             )
-        return noblank_lattice_nll_cuda(
-            emissions, input_lengths, target_lengths, layout=layout
-        )
+        return cuda_fn
     if implementation == "torch":
-        return noblank_lattice_nll_plain(
-            emissions, input_lengths, target_lengths, layout=layout
-        )
+        return plain_fn
     raise ValueError(f"unknown lattice implementation {implementation!r}")
+
+
+def lattice_nll(emissions, input_lengths, target_lengths, *,
+                implementation: str | None = None, layout: str = "tbl"):
+    """Per-sample blank-free lattice NLL ``[B]``.
+
+    ``emissions`` are ``[T, B, L]`` for ``layout='tbl'`` or ``[T, L, B]``
+    for ``'tlb'``.
+    """
+    fn = _pick(emissions, implementation, noblank_lattice_nll_cuda,
+               noblank_lattice_nll_plain)
+    return fn(emissions, input_lengths, target_lengths, layout=layout)
+
+
+def blank_lattice_nll(emissions, skip_ok, input_lengths, target_lengths, *,
+                      implementation: str | None = None,
+                      layout: str = "tbl"):
+    """Per-sample blank-CTC lattice NLL ``[B]``.
+
+    ``emissions`` are ``[T, B, S]`` for ``layout='tbl'`` or ``[T, S, B]``
+    for ``'tlb'``; ``skip_ok`` is the ``[B, S]`` skip-permission mask.
+    """
+    fn = _pick(emissions, implementation, blank_lattice_nll_cuda,
+               blank_lattice_nll_plain)
+    return fn(emissions, skip_ok, input_lengths, target_lengths,
+              layout=layout)

@@ -120,10 +120,12 @@ def _check(rc: int, name: str) -> None:
 
 def _require(kernel: str, **tensors) -> None:
     """Raise unless every operand is a contiguous CUDA tensor of the type
-    the kernel reads (int32 lengths, float32 otherwise) on one device."""
+    the kernel reads (int32 lengths, a uint8 ``skip_ok`` mask, float32
+    otherwise) on one device."""
     device = None
     for name, t in tensors.items():
-        want = torch.int32 if name.endswith("lengths") else torch.float32
+        want = (torch.int32 if name.endswith("lengths")
+                else torch.uint8 if name == "skip_ok" else torch.float32)
         if not (t.is_cuda and t.dtype == want and t.is_contiguous()):
             raise ValueError(
                 f"{kernel}: {name} must be a contiguous CUDA {want} tensor, "

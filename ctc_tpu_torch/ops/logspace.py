@@ -14,7 +14,9 @@ import torch.nn.functional as F
 
 NEG_SENTINEL = -1.0e13
 
-# Log-zero for the blank CTC lattice.
+# Log-zero for the blank CTC lattice (torch.nn.CTCLoss uses a true -inf; a
+# finite sentinel keeps gradients NaN-free, and at float32
+# exp(BLANK_NEG - x) underflows to exactly 0 for any reachable x).
 BLANK_NEG = -1.0e30
 
 # torch.nn.BCELoss clamps each log term at -100 (a saturated sigmoid gives a
