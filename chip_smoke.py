@@ -3,12 +3,14 @@
 Builds the hand-written CUDA kernels from ``ctc_tpu_torch/csrc/``, holds
 each against its plain PyTorch version on the card, trains the feature-mode
 LSTM head through the command-line entry point at full width with the
-NoBlankCTC loss and with the blank CTC loss, decodes from the checkpoints
-they wrote (greedy, beam, Viterbi alignment), checks that each run went
-through its kernels, and times each kernel beside its plain version, its
-bound and, where one exists, the PyTorch call that computes the same
-function.  Prints one JSON line per phase; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
+NoBlankCTC loss and with the blank CTC loss, then both again with the
+lattice's T axis split into 4 shards (``--seq-parallel 4``), decodes from
+the checkpoints they wrote (greedy, beam, Viterbi alignment, and the
+sharded greedy decode), checks that each run went through its kernels, and
+times each kernel beside its plain version, its bound and, where one
+exists, the PyTorch call that computes the same function.  Prints one JSON
+line per phase; the last line is ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -72,6 +74,26 @@ KERNELS = {
         "source": "ctc_tpu_torch/csrc/blank_lattice.cu",
         "replaces": "ctc_tpu/ops/blank_lattice_pallas.py:95",
     },
+    "noblank_shard_forward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/noblank_lattice.cu",
+        "replaces": "ctc_tpu/ops/lattice_pallas.py:242",
+    },
+    "noblank_shard_backward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/noblank_lattice.cu",
+        "replaces": "ctc_tpu/ops/lattice_pallas.py:282",
+    },
+    "blank_shard_forward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/blank_lattice.cu",
+        "replaces": "ctc_tpu/ops/blank_lattice_pallas.py:160",
+    },
+    "blank_shard_backward": {
+        "route": "cuda",
+        "source": "ctc_tpu_torch/csrc/blank_lattice.cu",
+        "replaces": "ctc_tpu/ops/blank_lattice_pallas.py:196",
+    },
 }
 
 # main path: the CLI's synthetic run at the LSTM head's full width
@@ -87,6 +109,20 @@ BLANK_CLASSES = 157
 BLANK_MAIN_SHAPE = (10, 256, 5)  # T, B, L (S = 2L+1 = 11)
 BLANK_BENCH_SHAPE = (128, 1024, 20)  # bench.py:205's blank shape, S = 41
 VAL_WINDOWS = 2 * 256  # the synthetic loader's 2 val batches
+# the seq-parallel main path: the same runs at T = 64 split into 4 shards of
+# 16 frames; noblank in 8 microbatches of 32 (L = max path = 64), blank in
+# the default 4 microbatches of 64 (paths of at most T/2 = 32, S = 65)
+SEQ_SHARDS = 4
+SEQ_COMMON = ["--dataset", "synthetic", "--batch-size", "256",
+              "--temporal", "64", "--extract-feat-dim", "1024",
+              "--epochs", "2", "--device", "cuda"]
+SEQ_FLAGS = ["--seq-parallel", str(SEQ_SHARDS)]
+SEQ_NOBLANK_ARGS = SEQ_COMMON + SEQ_FLAGS + ["--seq-microbatches", "8"]
+SEQ_BLANK_ARGS = SEQ_COMMON + ["--loss", "blank"] + SEQ_FLAGS
+SEQ_MAIN = {"noblank": (64, 256, 64, 8), "blank": (64, 256, 32, 4)}  # T B L M
+# the long-T shape the pipeline exists for: bench_seq_scaling.py:30's T,
+# B, L over 4 shards and 4 microbatches, so one shard is t_s 1024, B 4
+SEQ_LONG = {"noblank": (4096, 16, 24, 4), "blank": (4096, 16, 24, 4)}
 FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 
 
@@ -229,13 +265,18 @@ def read_counts() -> dict:
     return {**lc.launch_counts, **bl.launch_counts}
 
 
-def expect_counts(noblank=(0, 0), blank=(0, 0)) -> dict:
+def expect_counts(noblank=(0, 0), blank=(0, 0), noblank_shard=(0, 0),
+                  blank_shard=(0, 0)) -> dict:
     """The launch counts a run must show: (forward, backward) of each
     kernel pair."""
     return {"noblank_lattice_forward": noblank[0],
             "noblank_lattice_backward": noblank[1],
+            "noblank_shard_forward": noblank_shard[0],
+            "noblank_shard_backward": noblank_shard[1],
             "blank_lattice_forward": blank[0],
-            "blank_lattice_backward": blank[1]}
+            "blank_lattice_backward": blank[1],
+            "blank_shard_forward": blank_shard[0],
+            "blank_shard_backward": blank_shard[1]}
 
 
 def make_blank_case(gen, shape, *, device, classes=BLANK_CLASSES,
@@ -512,10 +553,13 @@ def phase_step_vs_cpu():
                         "zero_grad_param_atol": 2 * lr}})
 
 
-def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE):
+def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
+                  microbatches=None):
     """Where a main-path train step's time goes: the step's wall time with
     a synchronize at the end, then a torch.profiler window over the same
-    steps for device time by kernel and the device's busy share."""
+    steps for device time by kernel and the device's busy share.  With
+    ``microbatches``, the step runs the sequence-sharded loss over
+    ``SEQ_SHARDS`` shards."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,9 +577,17 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE):
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to("cuda")
     state = TrainState(model, torch_style_adam(model.parameters(), 1e-4))
-    step = make_train_step(loss, None, 0.0, lambda k: 1e-3)
+    loss_fn = None
+    if microbatches:
+        from ctc_tpu_torch.parallel import (
+            make_seq_mesh, make_seq_sharded_loss,
+        )
+
+        loss_fn = make_seq_sharded_loss(make_seq_mesh(SEQ_SHARDS, "cuda"),
+                                        loss, num_microbatches=microbatches)
+    step = make_train_step(loss, None, 0.0, lambda k: 1e-3, loss_fn=loss_fn)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    steps = 50
+    steps = 20 if microbatches else 50
     for _ in range(5):
         step(state, batch, gen)
     torch.cuda.synchronize()
@@ -559,6 +611,8 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE):
     lattice_us = sum(dev_us(e) for e in events if symbol.search(e.key))
     emit({"phase": "profile", "loss": loss, "classes": classes,
           "shape_TBL": list(shape),
+          "seq_shards": SEQ_SHARDS if microbatches else None,
+          "seq_microbatches": microbatches,
           "step_ms": step_ms, "profiled_window_ms": window_ms,
           "device_ms_per_step": device_ms / steps if events else None,
           "device_busy_share": device_ms / window_ms if events else None,
@@ -589,18 +643,21 @@ def device_kernels(prof):
 def kernel_device_ms(fn, symbol, iters=20):
     """Device execution time of one launch of ``fn``'s kernel ``symbol``
     from the profiler (the CUDA-event time of back-to-back launches at a
-    small shape is the host's launch rate instead)."""
+    small shape is the host's launch rate instead).  A window whose trace
+    holds no record of the kernel (the tracer dropped it) is taken again,
+    at most twice; None if none holds one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in device_kernels(prof) if symbol in e.key]
-    if not ev:
-        return None
-    return sum(dev_us(e) for e in ev) / sum(e.count for e in ev) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in device_kernels(prof) if symbol in e.key]
+        if ev:
+            return sum(dev_us(e) for e in ev) / sum(e.count for e in ev) / 1e3
+    return None
 
 
 def time_ms(fn, iters):
@@ -808,6 +865,469 @@ def phase_times_blank(card, name):
             result[(kname, label)] = row
     return result
 
+def make_shard_case(gen, family, shape, *, rows, repeats=False,
+                    zero_len=False):
+    """One shard's operands on the card: em ``[t_s, B, W]`` (blank: the
+    normalized gather of random logits, as the pipeline builds it), the two
+    init rows (``rows='shard0'``: shard 0's; else random rows with unreached
+    cells at the sentinel), the uint8 skip mask (blank), shard-local input
+    lengths below 1, inside the shard and above it, target lengths, and
+    cotangents of both outputs."""
+    import torch
+
+    from ctc_tpu_torch.losses.blank import blank_emissions_and_skip
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
+    from ctc_tpu_torch.ops.logspace import BLANK_NEG, NEG_SENTINEL
+
+    t_s, B, L = shape
+    skip = None
+    if family == "noblank":
+        width, neg = L, NEG_SENTINEL
+        em = torch.randn((t_s, B, L), generator=gen) - 1.0
+        tgt = torch.randint(1, L + 1, (B,), generator=gen)
+        init = lc.noblank_alpha_init(B, width)
+    else:
+        width, neg = 2 * L + 1, BLANK_NEG
+        targets = torch.randint(1, BLANK_CLASSES, (B, L), generator=gen)
+        if repeats:
+            targets[:, 1::2] = targets[:, 0::2][:, : targets[:, 1::2].shape[1]]
+        logits = torch.randn((t_s, B, BLANK_CLASSES), generator=gen)
+        em, skip = blank_emissions_and_skip(logits, targets, 0,
+                                            normalize=True)
+        skip = skip.to(torch.uint8)
+        tgt = torch.randint(0 if zero_len else 1, L + 1, (B,), generator=gen)
+        init = bl.blank_alpha_init(B, width)
+    inlen = torch.randint(-(t_s // 2), 2 * t_s + 1, (B,), generator=gen)
+    inlen[0] = t_s
+    if rows == "shard0":
+        r0, r1 = init, torch.full_like(init, neg)
+    else:
+        r0, r1 = (3.0 * torch.randn((B, width), generator=gen) - 8.0
+                  for _ in range(2))
+        r0[::2, -2:] = neg
+        r1[::2, -2:] = neg
+    d_final = torch.randn((B,), generator=gen)
+    d_boundary = torch.randn((B, width), generator=gen)
+    out = {"em": em.contiguous(), "r0": r0, "r1": r1, "skip": skip,
+           "inlen": inlen.int(), "tgt": tgt.int(), "d_final": d_final,
+           "d_boundary": d_boundary}
+    return {k: (v.to("cuda") if v is not None else None)
+            for k, v in out.items()}
+
+
+def shard_fns(family, c):
+    """(alpha kernel, alpha plain, grad kernel, grad plain, op kernel, op
+    plain) of one family, bound to the case ``c``'s operands."""
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
+
+    if family == "noblank":
+        mod, head, tail = lc, (c["tgt"],), (c["inlen"], c["tgt"])
+        g_args = (c["inlen"], c["tgt"])
+    else:
+        mod, head, tail = bl, (c["skip"],), (c["skip"], c["inlen"], c["tgt"])
+        g_args = (c["skip"], c["inlen"], c["tgt"])
+    rows = (c["r0"], c["r1"])
+    bars = (c["d_final"], c["d_boundary"])
+    return {
+        "alpha_kernel": lambda: getattr(mod, f"{family}_shard_alpha_kernel")(
+            c["em"], *head, *rows),
+        "alpha_plain": lambda: getattr(mod, f"{family}_shard_alpha_plain")(
+            c["em"], *head, *rows),
+        "grad_kernel": lambda alpha: getattr(
+            mod, f"{family}_shard_grad_kernel")(alpha, *g_args, *bars),
+        "grad_plain": lambda alpha: getattr(
+            mod, f"{family}_shard_grad_plain")(alpha, *g_args, *bars),
+        "op_kernel": getattr(mod, f"{family}_shard_lattice_cuda"),
+        "op_plain": getattr(mod, f"{family}_shard_lattice_plain"),
+        "final": mod.gather_final,
+        "tail": tail,
+    }
+
+
+def seq_chain_inputs(gen, family, shape):
+    """Inputs of the whole lattice at ``shape`` (T, B, L, M) on the card:
+    noblank emissions ``[T, B, L]``, or blank logits ``[T, B, 157]`` with
+    feasible targets; input and target lengths; a cotangent."""
+    import torch
+
+    T, B, L, _ = shape
+    inlen = torch.randint(1, T + 1, (B,), generator=gen)
+    inlen[0] = T
+    if family == "noblank":
+        x = torch.randn((T, B, L), generator=gen) - 1.0
+        skip = None
+        tgt = torch.minimum(torch.randint(1, L + 1, (B,), generator=gen),
+                            inlen)
+    else:
+        # the normalized gather the pipeline's shards build, made once so
+        # that both sides run their lattices on the same emissions
+        from ctc_tpu_torch.losses.blank import blank_emissions_and_skip
+
+        logits = torch.randn((T, B, BLANK_CLASSES), generator=gen)
+        paths = torch.randint(1, BLANK_CLASSES, (B, L), generator=gen)
+        x, skip = blank_emissions_and_skip(logits, paths, 0, normalize=True)
+        x, skip = x.contiguous(), skip.to(torch.uint8)
+        tgt = torch.minimum(torch.randint(0, L + 1, (B,), generator=gen),
+                            (inlen - 1) // 2)
+    cot = torch.randn((B,), generator=gen)
+    return [v.to("cuda") if v is not None else None
+            for v in (x, skip, inlen, tgt, cot)]
+
+
+def blank_shard_chain(em, skip, inlen, tgt):
+    """Per-sample NLL of em ``[T, B, S]`` through a chain of SEQ_SHARDS
+    blank shard ops, each handing its boundary row to the next."""
+    import torch
+
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import dispatch
+    from ctc_tpu_torch.ops.logspace import BLANK_NEG
+
+    t_s = em.shape[0] // SEQ_SHARDS
+    init0 = bl.blank_alpha_init(em.shape[1], em.shape[2], device=em.device)
+    rows, total = (init0, torch.full_like(init0, BLANK_NEG)), 0.0
+    for k in range(SEQ_SHARDS):
+        final, boundary = dispatch.blank_shard_lattice(
+            em[k * t_s:(k + 1) * t_s], *rows, skip, inlen - k * t_s, tgt)
+        rows, total = (boundary, boundary), total + final
+    return -total
+
+
+def phase_parity_seq():
+    """Each boundary kernel against its plain version on the card: the
+    final log-prob, the reachable alpha cells, g, and the autograd op's
+    gradients with respect to em and both init rows, at the main-path
+    shard shape, the long-T shard shape and the edge cases; then a 4-shard
+    kernel chain against the unsharded kernels on the same inputs."""
+    import torch
+
+    from ctc_tpu_torch.ops import dispatch
+    from ctc_tpu_torch.parallel import (
+        make_seq_mesh, make_seq_sharded_lattice_nll,
+    )
+
+    gen = torch.Generator().manual_seed(6)
+    errs = {}
+    for family in ("noblank", "blank"):
+        T, B, L, M = SEQ_MAIN[family]
+        lT, lB, lL, lM = SEQ_LONG[family]
+        main_shard = (T // SEQ_SHARDS, B // M, L)
+        cases = [
+            ("main_path", main_shard, dict(rows="random")),
+            ("main_path_shard0", main_shard, dict(rows="shard0")),
+            ("long_T", (lT // SEQ_SHARDS, lB // lM, lL), dict(rows="random")),
+            ("edges", (6, 16, 5), dict(rows="random", repeats=True,
+                                       zero_len=True)),
+            ("L1", (5, 4, 1), dict(rows="random")),
+        ]
+        for label, shape, flags in cases:
+            c = make_shard_case(gen, family, shape, **flags)
+            f = shard_fns(family, c)
+            alpha_k, alpha_p = f["alpha_kernel"](), f["alpha_plain"]()
+            final_k = f["final"](alpha_k, c["inlen"], c["tgt"])
+            final_p = f["final"](alpha_p, c["inlen"], c["tgt"])
+            g_k, g_p = f["grad_kernel"](alpha_k), f["grad_plain"](alpha_p)
+            grads = {}
+            for impl in ("op_kernel", "op_plain"):
+                e, a, b = (c[k].clone().requires_grad_()
+                           for k in ("em", "r0", "r1"))
+                final, boundary = f[impl](e, a, b, *f["tail"])
+                ((final * c["d_final"]).sum()
+                 + (boundary * c["d_boundary"]).sum()).backward()
+                grads[impl] = (e.grad, a.grad, b.grad)
+            torch.cuda.synchronize()
+            reach = alpha_p > (-1e12 if family == "noblank" else -1e29)
+            tag = f"seq {family} {label}"
+            check_close(f"{tag} final", final_k, final_p, LOSS_RTOL,
+                        LOSS_ATOL)
+            check_close(f"{tag} alpha", alpha_k[reach], alpha_p[reach],
+                        LOSS_RTOL, LOSS_ATOL)
+            check_close(f"{tag} grad", g_k, g_p, GRAD_RTOL, GRAD_ATOL)
+            op_dev = {}
+            for name, gk, gp in zip(("em", "init_row_0", "init_row_1"),
+                                    grads["op_kernel"], grads["op_plain"]):
+                check_close(f"{tag} autograd d {name}", gk, gp, GRAD_RTOL,
+                            GRAD_ATOL)
+                op_dev[name] = max_dev(gk, gp)
+            row = {"phase": "parity_seq", "family": family, "case": label,
+                   "shard_shape_TBL": list(shape),
+                   "width": int(c["em"].shape[2]),
+                   "final_max_abs_dev": max_dev(final_k, final_p),
+                   "alpha_reachable_max_abs_dev": max_dev(alpha_k[reach],
+                                                          alpha_p[reach]),
+                   "grad_max_abs_dev": max_dev(g_k, g_p),
+                   "autograd_grad_max_abs_dev": op_dev,
+                   "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL],
+                   "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL]}
+            emit(row)
+            errs[(family, label)] = row
+        # a 4-shard chain of the boundary kernels against the unsharded
+        # kernels (rows 1-2, 5-6) on the same emissions: the same
+        # operations in the same order, but for the order in which autograd
+        # sums each boundary row's two cotangents
+        mesh = make_seq_mesh(SEQ_SHARDS, "cuda")
+        for label, shape in (("main_path", SEQ_MAIN[family]),
+                             ("long_T", SEQ_LONG[family])):
+            x, skip, inlen, tgt, cot = seq_chain_inputs(gen, family, shape)
+            out = {}
+            for impl in ("seq", "unsharded"):
+                v = x.clone().requires_grad_()
+                if family == "noblank" and impl == "seq":
+                    nll = make_seq_sharded_lattice_nll(
+                        mesh, mode="noblank",
+                        num_microbatches=shape[3])(v, inlen, tgt)
+                elif family == "noblank":
+                    nll = dispatch.lattice_nll(v, inlen, tgt)
+                elif impl == "seq":
+                    nll = blank_shard_chain(v, skip, inlen, tgt)
+                else:
+                    nll = dispatch.blank_lattice_nll(v, skip, inlen, tgt)
+                (nll * cot).sum().backward()
+                out[impl] = (nll.detach(), v.grad)
+            torch.cuda.synchronize()
+            tag = f"seq chain {family} {label}"
+            check_close(f"{tag} nll", out["seq"][0], out["unsharded"][0],
+                        LOSS_RTOL, LOSS_ATOL)
+            check_close(f"{tag} grad", out["seq"][1], out["unsharded"][1],
+                        GRAD_RTOL, GRAD_ATOL)
+            emit({"phase": "parity_seq_chain", "family": family,
+                  "case": label, "shape_TBLM": list(shape),
+                  "shards": SEQ_SHARDS,
+                  "nll_max_abs_dev": max_dev(out["seq"][0],
+                                             out["unsharded"][0]),
+                  "grad_max_abs_dev": max_dev(out["seq"][1],
+                                              out["unsharded"][1]),
+                  "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL],
+                  "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL]})
+    return errs
+
+
+def read_csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_main_path_seq(work):
+    """The CLI's --seq-parallel 4 training runs on the card (noblank in 8
+    microbatches, blank in the default 4), each through the boundary
+    kernels only; then --evaluate --decode --seq-parallel 4 from the blank
+    checkpoint against the unsharded --evaluate --decode.  Returns the
+    launch counts by family."""
+    import torch
+
+    from ctc_tpu_torch.cli.main import main
+
+    launches = {}
+    for family, args in (("noblank", SEQ_NOBLANK_ARGS),
+                         ("blank", SEQ_BLANK_ARGS)):
+        cache = os.path.join(work, f"seq_{family}")
+        reset_counts()
+        t0 = time.perf_counter()
+        history = main(args + ["--cache-dir", cache])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        epochs = len(history)
+        train_steps, eval_steps = 8 * epochs, 2 * epochs  # the loader
+        per_step = SEQ_SHARDS * SEQ_MAIN[family][3]
+        want = expect_counts(**{f"{family}_shard": (
+            per_step * (train_steps + eval_steps), per_step * train_steps)})
+        if got != want:
+            fail(f"seq {family} launch counts {got}, expected {want}")
+        train_losses = [h["train"]["loss"] for h in history]
+        if not all(x == x and abs(x) < float("inf") for x in train_losses):
+            fail(f"non-finite seq {family} training loss {train_losses}")
+        if not train_losses[-1] < train_losses[0]:
+            fail(f"seq {family} training loss did not fall: {train_losses}")
+        emit({"phase": "main_path_seq", "loss": family, "argv": args,
+              "seconds": seconds, "train_steps": train_steps,
+              "eval_steps": eval_steps, "launches": got,
+              "train_loss_by_epoch": train_losses,
+              "val_loss_by_epoch": [h["val"]["loss"] for h in history],
+              "step_s_host_avg": [h["train"]["time"] for h in history]})
+        launches[family] = got
+
+    cache = os.path.join(work, "seq_blank")
+    resume = ["--cache-dir", cache, "--evaluate", "--decode", "--resume",
+              os.path.join(cache, "test")]
+    rows = {}
+    runs = (("sharded", SEQ_BLANK_ARGS,
+             expect_counts(blank_shard=(SEQ_SHARDS * 4 * 2, 0))),
+            ("unsharded", SEQ_COMMON + ["--loss", "blank"],
+             expect_counts(blank=(2, 0))))
+    for label, args, want in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = main(args + resume)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        if got != want:
+            fail(f"seq decode {label}: launch counts {got}, expected {want}")
+        rows[label] = read_csv_rows(metrics["decoded_csv"])
+        emit({"phase": "decode_seq", "run": label, "seconds": seconds,
+              "launches": got, "val_loss": metrics["loss"],
+              "rows": len(rows[label]) - 1,
+              "first_rows": rows[label][1:4]})
+    if len(rows["sharded"]) - 1 != VAL_WINDOWS:
+        fail(f"seq decode: {len(rows['sharded']) - 1} rows, expected "
+             f"{VAL_WINDOWS}")
+    if rows["sharded"] != rows["unsharded"]:
+        fail("seq decode: the sharded rows differ from the unsharded ones")
+    return launches
+
+
+def phase_seq_vs_plain():
+    """Three train steps at the main-path seq shape through the Trainer
+    with and without seq_parallel=4, from the same seed (same weights, same
+    dropout draws): the losses must agree."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch.data import synthetic_feature_batches
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train.trainer import Trainer, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for family, classes in (("noblank", 33), ("blank", BLANK_CLASSES)):
+        T, B, L, M = SEQ_MAIN[family]
+        batches = synthetic_feature_batches(
+            num_batches=3, batch_size=B, temporal=T, feat_dim=1024,
+            num_classes=classes, max_path=L, seed=6)
+        got = {}
+        for label, seq in (("plain", {}),
+                           ("seq", dict(seq_parallel=SEQ_SHARDS,
+                                        seq_microbatches=M))):
+            tr = Trainer(LSTMHead(1024, classes), loss_kind=family, lr=1e-3,
+                         seed=0, device="cuda", **seq)
+            state = tr.init_state()
+            got[label] = []
+            for b in batches:
+                state, m = tr.train_step(state, to_device(b, "cuda"),
+                                         tr.generator)
+                got[label].append(float(m["loss"]))
+        if not np.allclose(got["seq"], got["plain"], rtol=STEP_LOSS_RTOL,
+                           atol=0.0):
+            fail(f"seq vs plain {family}: {got}")
+        emit({"phase": "seq_vs_plain", "loss": family,
+              "shape_TBLM": [T, B, L, M], "loss_seq": got["seq"],
+              "loss_plain": got["plain"],
+              "max_rel_dev": float(np.max(np.abs(
+                  np.subtract(got["seq"], got["plain"]))
+                  / np.abs(got["plain"]))),
+              "rtol": STEP_LOSS_RTOL})
+
+
+def phase_times_seq(card, name):
+    """The boundary kernels' and plain versions' times in turns at the
+    main-path shard shape and the long-T shard shape, with each kernel's
+    bound; and the whole sharded loss (forward, forward+backward) against
+    the port's unsharded loss at the same global shapes."""
+    import torch
+
+    from ctc_tpu_torch import losses
+    from ctc_tpu_torch.parallel import make_seq_mesh, make_seq_sharded_loss
+
+    gen = torch.Generator().manual_seed(7)
+    rate = hbm_rate(name)
+    mesh = make_seq_mesh(SEQ_SHARDS, "cuda")
+    result = {}
+    for family in ("noblank", "blank"):
+        for label, shape in (("main_path", SEQ_MAIN[family]),
+                             ("long_T", SEQ_LONG[family])):
+            T, B, L, M = shape
+            shard = (T // SEQ_SHARDS, B // M, L)
+            c = make_shard_case(gen, family, shard, rows="random")
+            f = shard_fns(family, c)
+            alpha = f["alpha_kernel"]()
+            t_s, mb, width = c["em"].shape
+            cells, row = t_s * mb * width, mb * width
+            if family == "noblank":
+                # em in, alpha out, two init rows and target lengths in;
+                # alpha in, g out, g_seed and three [B] vectors in
+                fwd_bytes = 8 * cells + 8 * row + 4 * mb
+                bwd_bytes = 8 * cells + 4 * row + 12 * mb
+                fwd_ops, bwd_ops = 8 * cells, 17 * cells  # as rows 1-2
+            else:
+                # as above plus the [B, S] byte mask in each
+                fwd_bytes = 8 * cells + 9 * row
+                bwd_bytes = 8 * cells + 5 * row + 12 * mb
+                fwd_ops, bwd_ops = 14 * cells, 49 * cells  # as rows 5-6
+            fns = {
+                f"{family}_shard_forward": (
+                    f"{family}_forward_kernel", f["alpha_kernel"],
+                    f["alpha_plain"], fwd_bytes, fwd_ops),
+                f"{family}_shard_backward": (
+                    f"{family}_backward_kernel",
+                    lambda: f["grad_kernel"](alpha),
+                    lambda: f["grad_plain"](alpha), bwd_bytes, bwd_ops),
+            }
+            iters = 200 if label == "main_path" else 20
+            for kname, (symbol, kernel, plain, nbytes, nops) in fns.items():
+                p1 = time_ms(plain, 3)
+                k1 = time_ms(kernel, iters)
+                k2 = time_ms(kernel, iters)
+                p2 = time_ms(plain, 3)
+                device_ms = kernel_device_ms(kernel, symbol)
+                bytes_ms = nbytes / rate * 1e3
+                ops_ms = nops / FP32_PEAK * 1e3
+                row_out = {
+                    "phase": "times", "kernel": kname, "shape": label,
+                    "shard_shape_TBW": [t_s, mb, width],
+                    "global_shape_TBLM": list(shape),
+                    "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                    "kernel_device_ms": device_ms,
+                    "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                 else "operations"),
+                    "bytes": nbytes, "operations": nops,
+                    "hbm_bytes_per_s": rate, "fp32_ops_per_s": FP32_PEAK,
+                    # no PyTorch call runs a lattice shard from given init
+                    # rows (F.ctc_loss takes none)
+                    "library_ms": None,
+                    "launches_per_step": SEQ_SHARDS * M, "card": card,
+                }
+                emit(row_out)
+                result[(kname, label)] = row_out
+            # the whole loss, sharded and unsharded, from logits
+            classes = 33 if family == "noblank" else BLANK_CLASSES
+            logits = torch.randn((T, B, classes), generator=gen).to("cuda")
+            paths = torch.randint(1, classes, (B, L), generator=gen)
+            inlen = torch.randint(T // 2, T + 1, (B,), generator=gen)
+            tgt = torch.randint(1, L + 1, (B,), generator=gen)
+            paths, inlen, tgt = (v.to("cuda") for v in (paths, inlen, tgt))
+            seq_loss = make_seq_sharded_loss(mesh, family,
+                                             num_microbatches=M)
+            plain_loss = losses.LOSS_FNS[family]
+
+            def fwd(fn):
+                def run():
+                    with torch.no_grad():
+                        fn(logits, paths, inlen, tgt)
+                return run
+
+            def fwd_bwd(fn):
+                def run():
+                    x = logits.clone().requires_grad_()
+                    fn(x, paths, inlen, tgt).backward()
+                return run
+
+            loss_iters = 50 if label == "main_path" else 10
+            times = {}
+            for key, fn in (("seq", seq_loss), ("unsharded", plain_loss)):
+                times[f"{key}_fwd_ms"] = time_ms(fwd(fn), loss_iters)
+                times[f"{key}_fwd_bwd_ms"] = time_ms(fwd_bwd(fn), loss_iters)
+            emit({"phase": "times_seq_loss", "loss": family, "shape": label,
+                  "shape_TBLM": list(shape), "classes": classes,
+                  "shards": SEQ_SHARDS, **times, "card": card})
+    return result
+
 
 def main() -> None:
     import torch
@@ -826,27 +1346,44 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     blank_errs = phase_parity_blank()
+    seq_errs = phase_parity_seq()
     with tempfile.TemporaryDirectory() as work:
         noblank_cache = os.path.join(work, "noblank")
         blank_cache = os.path.join(work, "blank")
         launches = phase_main_path(noblank_cache)
         blank_launches = phase_main_path_blank(blank_cache)
         phase_decode(blank_cache, noblank_cache)
+        seq_launches = phase_main_path_seq(work)
     phase_step_vs_cpu()
+    phase_seq_vs_plain()
     phase_profile()
     phase_profile("blank", BLANK_CLASSES, BLANK_MAIN_SHAPE)
-    times = {**phase_times(card, name), **phase_times_blank(card, name)}
+    # the seq main-path step, and the unsharded step at the same shape
+    for family, classes in (("noblank", 33), ("blank", BLANK_CLASSES)):
+        T, B, L, M = SEQ_MAIN[family]
+        phase_profile(family, classes, (T, B, L), microbatches=M)
+        phase_profile(family, classes, (T, B, L))
+    times = {**phase_times(card, name), **phase_times_blank(card, name),
+             **phase_times_seq(card, name)}
     kernels = []
     for kname, meta in KERNELS.items():
         t = times[(kname, "main_path")]
-        blank = kname.startswith("blank")
-        main_errs = (blank_errs if blank else errs)["main_path"]
+        family = kname.split("_")[0]
+        if "_shard_" in kname:
+            run_launches = seq_launches[family]
+            err = seq_errs[(family, "main_path")]
+            err = (err["final_max_abs_dev"] if kname.endswith("forward")
+                   else err["grad_max_abs_dev"])
+        else:
+            run_launches = blank_launches if family == "blank" else launches
+            main_errs = (blank_errs if family == "blank" else errs)[
+                "main_path"]
+            err = (main_errs["nll_max_abs_dev"] if kname.endswith("forward")
+                   else main_errs["grad_max_abs_dev"])
         kernels.append({
             "name": kname, **meta,
-            "launches": (blank_launches if blank else launches)[kname],
-            "max_abs_err": (main_errs["nll_max_abs_dev"]
-                            if kname.endswith("forward")
-                            else main_errs["grad_max_abs_dev"]),
+            "launches": run_launches[kname],
+            "max_abs_err": err,
             "ms": t["kernel_ms"], "device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,5 +1,6 @@
 """Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path,
-``--evaluate`` and its ``--decode`` / ``--decode-beam`` / ``--decode-align``).
+``--evaluate`` and its ``--decode`` / ``--decode-beam`` / ``--decode-align``,
+and ``--seq-parallel`` / ``--seq-microbatches``).
 
 Seed, tee, build the model and the trainer, build the data loaders
 (string-keyed dataset registry), optionally resume, then either validate
@@ -30,15 +31,40 @@ def get_dataset(cfg):
     return module.get(cfg)
 
 
+def check_seq_flags(cfg) -> None:
+    """Refuse a ``--seq-parallel`` geometry the pipeline cannot split,
+    before any work."""
+    if cfg.seq_parallel <= 1:
+        return
+    if cfg.temporal % cfg.seq_parallel:
+        raise SystemExit(
+            f"--temporal {cfg.temporal} must be divisible by "
+            f"--seq-parallel {cfg.seq_parallel} (the lattice T axis is "
+            "split into equal shards)"
+        )
+    m = cfg.seq_microbatches or cfg.seq_parallel
+    if cfg.batch_size % m:
+        raise SystemExit(
+            f"--batch-size {cfg.batch_size} must be divisible by the seq "
+            f"pipeline's microbatch count {m} (--seq-microbatches)"
+        )
+
+
 def check_decode_flags(cfg) -> None:
     """Refuse a decode flag the loss cannot serve, before any eval work.
 
     Gated on the flags that make decode run at all, so a training run
     carrying a stale decode flag keeps working."""
-    if cfg.evaluate and cfg.decode and cfg.decode_beam and cfg.loss != "blank":
-        raise SystemExit(
-            "--decode-beam needs a blank symbol: use --loss blank"
-        )
+    if cfg.evaluate and cfg.decode and cfg.decode_beam:
+        if cfg.loss != "blank":
+            raise SystemExit(
+                "--decode-beam needs a blank symbol: use --loss blank"
+            )
+        if cfg.seq_parallel > 1:
+            raise SystemExit(
+                "--decode-beam does not compose with --seq-parallel "
+                "(greedy decode does)"
+            )
     if (cfg.evaluate and cfg.decode_align
             and cfg.loss not in ("noblank", "binary")):
         raise SystemExit(
@@ -50,6 +76,7 @@ def check_decode_flags(cfg) -> None:
 def main(argv=None):
     cfg = config_lib.parse(argv)
     config_lib.reject_unported(cfg)
+    check_seq_flags(cfg)
     check_decode_flags(cfg)
     device = resolve_device(cfg.device)
     Tee(os.path.join(cfg.cache, "log.txt"))
@@ -76,6 +103,8 @@ def main(argv=None):
         train_size=cfg.train_size,
         val_size=cfg.val_size,
         device=device,
+        seq_parallel=cfg.seq_parallel,
+        seq_microbatches=cfg.seq_microbatches,
     )
     state = trainer.init_state()
     start_epoch = cfg.start_epoch
@@ -96,12 +125,16 @@ def main(argv=None):
             # decoded transition paths per val window (blank collapse only
             # for the blank loss)
             from ctc_tpu_torch.eval.video import decode_windows
+            from ctc_tpu_torch.parallel import make_seq_mesh
 
+            seq_mesh = (make_seq_mesh(cfg.seq_parallel, device)
+                        if cfg.seq_parallel > 1 else None)
             out_csv = os.path.join(cfg.cache, "decoded_predictions.csv")
             dec = decode_windows(
                 model, val_batches,
                 blank=(0 if cfg.loss == "blank" else -1),
-                out_csv=out_csv, beam_width=cfg.decode_beam,
+                out_csv=out_csv, seq_mesh=seq_mesh,
+                beam_width=cfg.decode_beam,
             )
             print(f"decoded transition paths: {len(dec['lengths'])} windows "
                   f"-> {out_csv}")

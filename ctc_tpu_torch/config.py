@@ -122,9 +122,6 @@ UNPORTED = (
     ("--data-parallel", lambda c: c.data_parallel is not None,
      "Queue 1 item 14"),
     ("--model-parallel", lambda c: c.model_parallel > 1, "Queue 1 item 14"),
-    ("--seq-parallel", lambda c: c.seq_parallel > 1, "Queue 1 item 14"),
-    ("--seq-microbatches", lambda c: c.seq_microbatches > 0,
-     "Queue 1 item 14"),
     ("--num-hosts", lambda c: c.num_hosts > 1, "Queue 1 item 14"),
     ("--steps-per-dispatch", lambda c: c.steps_per_dispatch > 1,
      "Queue 1 item 14"),

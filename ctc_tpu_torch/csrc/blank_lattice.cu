@@ -4,7 +4,10 @@
 // Layout is [T, B, S] ("tbl"), float32, contiguous; skip_ok is [B, S] uint8.
 //
 // Replaces ctc_tpu/ops/blank_lattice_pallas.py:_forward_kernel and
-// ctc_tpu/ops/blank_lattice_pallas.py:_backward_kernel.
+// ctc_tpu/ops/blank_lattice_pallas.py:_backward_kernel (the whole lattice),
+// and ctc_tpu/ops/blank_lattice_pallas.py:_forward_kernel_boundary and
+// ctc_tpu/ops/blank_lattice_pallas.py:_backward_kernel_boundary (one T-shard
+// of the sequence-parallel pipeline, entry points blank_shard_*).
 //
 // What bounds them on this card: each kernel streams one [T, B, S] f32
 // tensor in and one out (em -> alpha, alpha -> g) plus a [B, S] byte mask,
@@ -29,6 +32,15 @@
 // reads, and their gradient stays exactly 0).  The backward's branch
 // weights are exp(source - lse) with every masked source at the sentinel,
 // exactly as the XLA scan's autodiff and the Pallas kernel compute them.
+//
+// The shard kernels are the same loops with the lattice's two boundaries
+// handed in (kShard = true): the carry starts from the row init0[b], the
+// skip source of local t = 0 is the row skip0[b] (the carry at every later
+// step), the backward adds the cotangent of the outgoing boundary row,
+// g_seed[b], at the last local row, and the final cells are injected with
+// +bar times their softmax (the op returns the final log-prob).  On shard 0
+// the pipeline passes the virtual alpha(-1) row as init0 and the
+// all-sentinel row as skip0, which reproduces the t = 0 skip gate exactly.
 
 #include <cuda_runtime.h>
 
@@ -49,8 +61,12 @@ __device__ __forceinline__ float logaddexp3(float stay, float adv,
 // alpha[t, b, s] = em[t, b, s] + logaddexp3(alpha[t-1, b, s],
 //     alpha[t-1, b, s-1], skip_ok[b, s] && t > 0 ? alpha[t-1, b, s-2] : NEG)
 // with alpha(-1) = 0 at s = 0 and NEG elsewhere.
+// kShard: alpha(-1) = init0[b], and the skip source at t = 0 is skip0[b].
+template <bool kShard>
 __global__ void blank_forward_kernel(const float* __restrict__ em,
                                      const unsigned char* __restrict__ skip,
+                                     const float* __restrict__ init0,
+                                     const float* __restrict__ skip0,
                                      float* __restrict__ alpha, int T, int B,
                                      int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
@@ -62,7 +78,11 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
   const unsigned char* skip_b = skip + static_cast<size_t>(b) * S;
 
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    rows[s] = (s == 0) ? 0.0f : kNeg;
+    if constexpr (kShard) {
+      rows[s] = init0[static_cast<size_t>(b) * S + s];
+    } else {
+      rows[s] = (s == 0) ? 0.0f : kNeg;
+    }
     skip_sh[s] = skip_b[s];
   }
   __syncthreads();
@@ -75,8 +95,14 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
       const float e = em_t[s];
       const float stay = cur[s];
       const float adv = (s >= 1) ? cur[s - 1] : kNeg;
-      const float skp =
-          (t > 0 && s >= 2 && skip_sh[s]) ? cur[s - 2] : kNeg;
+      float skp = kNeg;
+      if (s >= 2 && skip_sh[s]) {
+        if (t > 0) {
+          skp = cur[s - 2];
+        } else if constexpr (kShard) {
+          skp = skip0[static_cast<size_t>(b) * S + s - 2];
+        }
+      }
       const float a = logaddexp3(stay, adv, skp) + e;
       alpha_t[s] = a;
       nxt[s] = a;
@@ -93,11 +119,16 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
 // inject = -nll_bar[b] * softmax(final two cells) at t = inlen[b] - 1, on
 // s = 2 tgt[b] and (tgt[b] > 0) s = 2 tgt[b] - 1.  g is zero above the last
 // row, so every row at or past inlen[b] comes out exactly 0.
+// kShard: the inject is +bar[b] times the softmax (inlen is shard-local, so a
+// shard that does not own the final cells injects nothing), and g_seed[b]
+// is added at t = T-1.
+template <bool kShard>
 __global__ void blank_backward_kernel(const float* __restrict__ alpha,
                                       const unsigned char* __restrict__ skip,
                                       const int* __restrict__ inlen,
                                       const int* __restrict__ tgt,
                                       const float* __restrict__ nll_bar,
+                                      const float* __restrict__ g_seed,
                                       float* __restrict__ g, int T, int B,
                                       int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
@@ -105,7 +136,7 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int t_inject = inlen[b] - 1;
-  const float bar = nll_bar[b];
+  const float bar = kShard ? nll_bar[b] : -nll_bar[b];
   const size_t row_stride = static_cast<size_t>(B) * S;
   const float* alpha_b = alpha + static_cast<size_t>(b) * S;
   float* g_b = g + static_cast<size_t>(b) * S;
@@ -119,8 +150,8 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
   const float a_a = alpha_f[s_a];
   const float a_b = alpha_f[s_b];
   const float lse_f = (tgt_b > 0) ? logaddexp(a_a, a_b) : a_a;
-  const float inj_a = -bar * expf(a_a - lse_f);
-  const float inj_b = (tgt_b > 0) ? -bar * expf(a_b - lse_f) : 0.0f;
+  const float inj_a = bar * expf(a_a - lse_f);
+  const float inj_b = (tgt_b > 0) ? bar * expf(a_b - lse_f) : 0.0f;
 
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     rows[s] = 0.0f;
@@ -138,6 +169,9 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
       if (t == t_inject) {
         inject = ((s == s_a) ? inj_a : 0.0f) +
                  ((tgt_b > 0 && s == s_b) ? inj_b : 0.0f);
+      }
+      if constexpr (kShard) {
+        if (t == T - 1) inject += g_seed[static_cast<size_t>(b) * S + s];
       }
       float prop = 0.0f;
       if (t < T - 1) {
@@ -193,6 +227,36 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
+template <bool kShard>
+cudaError_t launch_forward(const float* em, const unsigned char* skip,
+                           const float* init0, const float* skip0,
+                           float* alpha, int T, int B, int S,
+                           cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
+  const size_t smem = shared_bytes(S);
+  cudaError_t err = prepare(
+      reinterpret_cast<const void*>(blank_forward_kernel<kShard>), smem);
+  if (err != cudaSuccess) return err;
+  blank_forward_kernel<kShard><<<B, block_threads(S), smem, stream>>>(
+      em, skip, init0, skip0, alpha, T, B, S);
+  return cudaGetLastError();
+}
+
+template <bool kShard>
+cudaError_t launch_backward(const float* alpha, const unsigned char* skip,
+                            const int* inlen, const int* tgt,
+                            const float* bar, const float* g_seed, float* g,
+                            int T, int B, int S, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
+  const size_t smem = shared_bytes(S);
+  cudaError_t err = prepare(
+      reinterpret_cast<const void*>(blank_backward_kernel<kShard>), smem);
+  if (err != cudaSuccess) return err;
+  blank_backward_kernel<kShard><<<B, block_threads(S), smem, stream>>>(
+      alpha, skip, inlen, tgt, bar, g_seed, g, T, B, S);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -200,14 +264,8 @@ extern "C" {
 cudaError_t blank_lattice_forward(const float* em, const unsigned char* skip,
                                   float* alpha, int T, int B, int S,
                                   cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
-  const size_t smem = shared_bytes(S);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(blank_forward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  blank_forward_kernel<<<B, block_threads(S), smem, stream>>>(em, skip, alpha,
-                                                              T, B, S);
-  return cudaGetLastError();
+  return launch_forward<false>(em, skip, nullptr, nullptr, alpha, T, B, S,
+                               stream);
 }
 
 cudaError_t blank_lattice_backward(const float* alpha,
@@ -215,14 +273,27 @@ cudaError_t blank_lattice_backward(const float* alpha,
                                    const int* tgt, const float* nll_bar,
                                    float* g, int T, int B, int S,
                                    cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
-  const size_t smem = shared_bytes(S);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(blank_backward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  blank_backward_kernel<<<B, block_threads(S), smem, stream>>>(
-      alpha, skip, inlen, tgt, nll_bar, g, T, B, S);
-  return cudaGetLastError();
+  return launch_backward<false>(alpha, skip, inlen, tgt, nll_bar, nullptr, g,
+                                T, B, S, stream);
+}
+
+// One T-shard: init0 / skip0 are [B, S] init rows.
+cudaError_t blank_shard_forward(const float* em, const unsigned char* skip,
+                                const float* init0, const float* skip0,
+                                float* alpha, int T, int B, int S,
+                                cudaStream_t stream) {
+  return launch_forward<true>(em, skip, init0, skip0, alpha, T, B, S, stream);
+}
+
+// One T-shard: inlen is shard-local, final_bar the cotangent of the final
+// log-prob, g_seed [B, S] that of the outgoing boundary row.
+cudaError_t blank_shard_backward(const float* alpha, const unsigned char* skip,
+                                 const int* inlen, const int* tgt,
+                                 const float* final_bar, const float* g_seed,
+                                 float* g, int T, int B, int S,
+                                 cudaStream_t stream) {
+  return launch_backward<true>(alpha, skip, inlen, tgt, final_bar, g_seed, g,
+                               T, B, S, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@
 // (ctypes).  Layout is [T, B, L] ("tbl"), float32, contiguous.
 //
 // Replaces ctc_tpu/ops/lattice_pallas.py:_forward_kernel and
-// ctc_tpu/ops/lattice_pallas.py:_backward_kernel.
+// ctc_tpu/ops/lattice_pallas.py:_backward_kernel (the whole lattice), and
+// ctc_tpu/ops/lattice_pallas.py:_forward_kernel_boundary and
+// ctc_tpu/ops/lattice_pallas.py:_backward_kernel_boundary (one T-shard of the
+// sequence-parallel pipeline, entry points noblank_shard_*).
 //
 // What bounds them on this card: each kernel streams one [T, B, L] f32
 // tensor in and one out (em -> alpha, alpha -> g) and does ~10 flops and
@@ -23,6 +26,16 @@
 // advance at t=0, logaddexp as max + log1p(exp(-|a-b|)), the outside mask
 // applied before the emission add, and sigmoid branch weights in the
 // backward (degenerate lattices need the exact 1/2, 1/2 split).
+//
+// The shard kernels are the same loops with the lattice's two boundaries
+// handed in (kShard = true): the carry starts from the row stay0[b] instead
+// of the l = 0 init, the advance source of local t = 0 is the row adv0[b]
+// (shifted; there is no t > 0 gate), the backward adds the cotangent of the
+// outgoing boundary row, g_seed[b], at the last local row, and the final
+// cell is injected with +bar (the op returns the final log-prob, not the
+// NLL).  On shard 0 the pipeline passes the l = 0 init as stay0 and the
+// all-sentinel row as adv0, which reproduces the whole-lattice kernel's
+// t = 0 step exactly.
 
 #include <cuda_runtime.h>
 
@@ -42,8 +55,12 @@ __device__ __forceinline__ float sigmoid(float x) {
 // alpha[t, b, l] = em[t, b, l]
 //     + (l >= tgt[b] ? -1e13 : logaddexp(alpha[t-1, b, l], alpha[t-1, b, l-1]))
 // with alpha(-1) = 0 at l = 0 and the sentinel elsewhere; no advance at t=0.
+// kShard: alpha(-1) = stay0[b], and the advance source at t = 0 is adv0[b].
+template <bool kShard>
 __global__ void noblank_forward_kernel(const float* __restrict__ em,
                                        const int* __restrict__ tgt,
+                                       const float* __restrict__ stay0,
+                                       const float* __restrict__ adv0,
                                        float* __restrict__ alpha, int T, int B,
                                        int L) {
   extern __shared__ float rows[];  // [2][L]
@@ -54,7 +71,11 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
   float* alpha_b = alpha + static_cast<size_t>(b) * L;
 
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    rows[l] = (l == 0) ? 0.0f : kNegSentinel;
+    if constexpr (kShard) {
+      rows[l] = stay0[static_cast<size_t>(b) * L + l];
+    } else {
+      rows[l] = (l == 0) ? 0.0f : kNegSentinel;
+    }
   }
   __syncthreads();
   for (int t = 0; t < T; ++t) {
@@ -65,7 +86,14 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
     for (int l = threadIdx.x; l < L; l += blockDim.x) {
       const float e = em_t[l];
       const float stay = cur[l];
-      const float adv = (t > 0 && l > 0) ? cur[l - 1] : kNegSentinel;
+      float adv = kNegSentinel;
+      if (l > 0) {
+        if (t > 0) {
+          adv = cur[l - 1];
+        } else if constexpr (kShard) {
+          adv = adv0[static_cast<size_t>(b) * L + l - 1];
+        }
+      }
       float lse = logaddexp(stay, adv);
       if (l >= tgt_b) lse = kNegSentinel;
       const float a = lse + e;
@@ -80,20 +108,24 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
 //   g[t, l] = inject[t, l] + g[t+1, l] * w_stay(t, l)
 //             + g[t+1, l+1] * w_adv(t, l+1)
 // with w_stay(t, l) = sigmoid(alpha[t, l] - alpha[t, l-1]) * inside(l),
-// w_adv = (1 - sigmoid(...)) * inside(l), and inject = -nll_bar[b] at
+// w_adv = (1 - sigmoid(...)) * inside(l), and inject = -bar[b] at
 // (inlen[b]-1, tgt[b]-1).  g is zero above the last row, so every row at or
 // past inlen[b] comes out exactly 0.
+// kShard: inject = +bar[b] (inlen is shard-local, so a shard that does not
+// own the final cell injects nothing), and g_seed[b] is added at t = T-1.
+template <bool kShard>
 __global__ void noblank_backward_kernel(const float* __restrict__ alpha,
                                         const int* __restrict__ inlen,
                                         const int* __restrict__ tgt,
-                                        const float* __restrict__ nll_bar,
+                                        const float* __restrict__ bar,
+                                        const float* __restrict__ g_seed,
                                         float* __restrict__ g, int T, int B,
                                         int L) {
   extern __shared__ float rows[];  // [2][L]
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int t_inject = inlen[b] - 1;
-  const float inject_val = -nll_bar[b];
+  const float inject_val = kShard ? bar[b] : -bar[b];
   const size_t row_stride = static_cast<size_t>(B) * L;
   const float* alpha_b = alpha + static_cast<size_t>(b) * L;
   float* g_b = g + static_cast<size_t>(b) * L;
@@ -109,8 +141,11 @@ __global__ void noblank_backward_kernel(const float* __restrict__ alpha,
     const float* alpha_t = alpha_b + static_cast<size_t>(t) * row_stride;
     float* g_t = g_b + static_cast<size_t>(t) * row_stride;
     for (int l = threadIdx.x; l < L; l += blockDim.x) {
-      const float inject =
+      float inject =
           (t == t_inject && l == tgt_b - 1) ? inject_val : 0.0f;
+      if constexpr (kShard) {
+        if (t == T - 1) inject += g_seed[static_cast<size_t>(b) * L + l];
+      }
       float prop = 0.0f;
       if (t < T - 1) {
         const float a_l = alpha_t[l];
@@ -149,6 +184,35 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
+template <bool kShard>
+cudaError_t launch_forward(const float* em, const int* tgt, const float* stay0,
+                           const float* adv0, float* alpha, int T, int B,
+                           int L, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
+  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
+  cudaError_t err = prepare(
+      reinterpret_cast<const void*>(noblank_forward_kernel<kShard>), smem);
+  if (err != cudaSuccess) return err;
+  noblank_forward_kernel<kShard><<<B, block_threads(L), smem, stream>>>(
+      em, tgt, stay0, adv0, alpha, T, B, L);
+  return cudaGetLastError();
+}
+
+template <bool kShard>
+cudaError_t launch_backward(const float* alpha, const int* inlen,
+                            const int* tgt, const float* bar,
+                            const float* g_seed, float* g, int T, int B,
+                            int L, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
+  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
+  cudaError_t err = prepare(
+      reinterpret_cast<const void*>(noblank_backward_kernel<kShard>), smem);
+  if (err != cudaSuccess) return err;
+  noblank_backward_kernel<kShard><<<B, block_threads(L), smem, stream>>>(
+      alpha, inlen, tgt, bar, g_seed, g, T, B, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -156,29 +220,34 @@ extern "C" {
 cudaError_t noblank_lattice_forward(const float* em, const int* tgt,
                                     float* alpha, int T, int B, int L,
                                     cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(noblank_forward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  noblank_forward_kernel<<<B, block_threads(L), smem, stream>>>(em, tgt,
-                                                                 alpha, T, B,
-                                                                 L);
-  return cudaGetLastError();
+  return launch_forward<false>(em, tgt, nullptr, nullptr, alpha, T, B, L,
+                               stream);
 }
 
 cudaError_t noblank_lattice_backward(const float* alpha, const int* inlen,
                                      const int* tgt, const float* nll_bar,
                                      float* g, int T, int B, int L,
                                      cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(noblank_backward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  noblank_backward_kernel<<<B, block_threads(L), smem, stream>>>(
-      alpha, inlen, tgt, nll_bar, g, T, B, L);
-  return cudaGetLastError();
+  return launch_backward<false>(alpha, inlen, tgt, nll_bar, nullptr, g, T, B,
+                                L, stream);
+}
+
+// One T-shard: stay0 / adv0 are [B, L] init rows.
+cudaError_t noblank_shard_forward(const float* em, const int* tgt,
+                                  const float* stay0, const float* adv0,
+                                  float* alpha, int T, int B, int L,
+                                  cudaStream_t stream) {
+  return launch_forward<true>(em, tgt, stay0, adv0, alpha, T, B, L, stream);
+}
+
+// One T-shard: inlen is shard-local, final_bar the cotangent of the final
+// log-prob, g_seed [B, L] that of the outgoing boundary row.
+cudaError_t noblank_shard_backward(const float* alpha, const int* inlen,
+                                   const int* tgt, const float* final_bar,
+                                   const float* g_seed, float* g, int T,
+                                   int B, int L, cudaStream_t stream) {
+  return launch_backward<true>(alpha, inlen, tgt, final_bar, g_seed, g, T, B,
+                               L, stream);
 }
 
 }  // extern "C"

@@ -28,9 +28,15 @@ def collapse_repeats(labels: torch.Tensor, lengths: torch.Tensor,
         [torch.full((batch, 1), -1, dtype=labels.dtype, device=labels.device),
          labels[:, :-1]], dim=1)
     keep = valid & (labels != blank) & (labels != prev)
-    # stable compaction: each kept label goes to its rank among the kept
+    return compact(labels, keep)
+
+
+def compact(labels: torch.Tensor, keep: torch.Tensor):
+    """Stable compaction: each kept label of ``[B, T]`` goes to its rank
+    among the kept, ``-1`` elsewhere.  Returns ``(out [B, T], counts
+    [B])``."""
     pos = torch.cumsum(keep, dim=1) - 1
-    out = torch.full((batch, max_t), -1, dtype=labels.dtype,
+    out = torch.full(labels.shape, -1, dtype=labels.dtype,
                      device=labels.device)
     b_idx, t_kept = keep.nonzero(as_tuple=True)
     out[b_idx, pos[b_idx, t_kept]] = labels[b_idx, t_kept]

@@ -50,28 +50,36 @@ def decode_windows(model, batches, *, blank: int = -1,
         losses) collapses repeats only.
       out_csv: optional path, one row per window: ``batch, index, length,
         path`` (space-joined class indices).
-      seq_mesh: the sequence-sharded decode; not ported yet.
+      seq_mesh: a :class:`ctc_tpu_torch.parallel.SeqMesh`: decode runs
+        T-sharded, each shard taking the previous shard's last frame label
+        as its boundary
+        (:func:`ctc_tpu_torch.parallel.make_seq_sharded_greedy_decode`).
       beam_width: > 0 decodes with prefix beam search (best beam kept)
-        instead of greedy; needs a blank symbol.
+        instead of greedy; needs a blank symbol, and exclusive with
+        ``seq_mesh``.
 
     The JAX function's ``head_slice`` (the verb slice of the joint loss's
     head) comes with the joint loss (ROADMAP.md Queue 1 item 8).
 
     Returns ``{"decoded": [N, T] -1-padded, "lengths": [N]}``.
     """
-    if seq_mesh is not None:
-        raise NotImplementedError(
-            "decode_windows(seq_mesh=...) is not ported to ctc_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 14)"
-        )
     if beam_width and blank < 0:
         raise ValueError("beam decode needs a blank symbol (--loss blank)")
+    if beam_width and seq_mesh is not None:
+        raise ValueError("beam decode does not compose with seq_mesh")
+    seq_decode = None
+    if seq_mesh is not None:
+        from ctc_tpu_torch.parallel import make_seq_sharded_greedy_decode
+
+        seq_decode = make_seq_sharded_greedy_decode(seq_mesh, blank=blank)
     all_decoded, all_lengths, rows = [], [], []
     for bi, batch in enumerate(batches):
         logits = _eval_logits(model, batch["feats"])
         input_lengths = torch.as_tensor(
             np.asarray(batch["input_lengths"])).to(logits.device)
-        if beam_width:
+        if seq_decode is not None:
+            decoded, lengths = seq_decode(logits, input_lengths)
+        elif beam_width:
             prefixes, lens, _ = beam_search_decode(
                 logits, input_lengths, beam_width=beam_width, blank=blank)
             decoded, lengths = prefixes[:, 0, :].to(torch.int32), lens[:, 0]

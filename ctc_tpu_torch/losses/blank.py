@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from ctc_tpu_torch.ops import dispatch
+# the virtual alpha(-1) row, defined beside the lattice it seeds
+from ctc_tpu_torch.ops.blank_lattice_cuda import blank_alpha_init  # noqa: F401
 
 
 def _expand_targets(targets: torch.Tensor, blank: int) -> torch.Tensor:

@@ -23,17 +23,33 @@ cells the loss reads, and their gradient is exactly 0.
   CPU tensor.  It takes nothing else and never falls back.
 * :func:`blank_lattice_nll_plain` is the plain PyTorch version on any
   device: the CPU path, and the oracle the kernels are held to.
+
+One T-shard of the sequence-parallel pipeline (port of
+``blank_shard_lattice_pallas``) is the same recursion with its two
+boundaries handed in: ``init0`` seeds the carry and ``skip0`` is the skip
+source of the first local step.  :func:`blank_shard_lattice_cuda` and
+:func:`blank_shard_lattice_plain` return ``(final [B], boundary_out [B, S])``:
+the final log-prob (the log-add of the two final cells at local
+``inlen - 1``, 0 unless ``1 <= inlen_local <= t_s``) and the last alpha row.
+The whole lattice is the shard whose init rows are :func:`blank_alpha_init`
+and the sentinel row.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ctc_tpu_torch.ops.lattice_cuda import _check, _require, _to_tbl
+from ctc_tpu_torch.ops.lattice_cuda import (
+    _require,
+    _to_tbl,
+    launch,
+    validate_rows,
+)
 from ctc_tpu_torch.ops.logspace import BLANK_NEG
 
 #: launches of each kernel, counted where the wrapper launches it
-launch_counts = {"blank_lattice_forward": 0, "blank_lattice_backward": 0}
+launch_counts = {"blank_lattice_forward": 0, "blank_lattice_backward": 0,
+                 "blank_shard_forward": 0, "blank_shard_backward": 0}
 
 _SOURCE = "blank_lattice.cu"
 
@@ -59,30 +75,43 @@ def _shift_left(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([x[..., k:], torch.zeros_like(x[..., :k])], dim=-1)
 
 
-def _sources(alpha_prev, skip_ok, skip_open: bool):
-    """The stay, advance and skip source scores of every cell from the row
-    before; the skip source is the sentinel where it is not permitted."""
+def _sources(alpha_prev, skip_prev, skip_ok):
+    """The stay, advance and skip source scores of every cell: stay and
+    advance from ``alpha_prev``, skip from ``skip_prev`` (the sentinel where
+    it is not permitted)."""
     adv = _shift_right(alpha_prev, 1)
-    skp = _shift_right(alpha_prev, 2)
-    skp = torch.where(skip_ok & skip_open, skp, BLANK_NEG)
+    skp = torch.where(skip_ok, _shift_right(skip_prev, 2), BLANK_NEG)
     return alpha_prev, adv, skp
+
+
+def blank_alpha_init(batch, width, *, dtype=torch.float32, device=None):
+    """The virtual ``alpha(-1)`` row ``[B, S]``: 0 at ``s = 0``, the
+    sentinel elsewhere (shard 0's ``init0``)."""
+    row = torch.full((batch, width), BLANK_NEG, dtype=dtype, device=device)
+    row[:, 0] = 0.0
+    return row
 
 
 def blank_alpha_plain(em, skip_ok):
     """The full alpha lattice ``[T, B, S]`` (the backward's residual) from
     em ``[T, B, S]`` and the ``[B, S]`` skip mask."""
-    max_t, batch, max_s = em.shape
+    _, batch, max_s = em.shape
+    init0 = blank_alpha_init(batch, max_s, dtype=em.dtype, device=em.device)
+    # skip is illegal at t == 0 (it would alias the s == 0 init cell): its
+    # source there is the sentinel row
+    return blank_shard_alpha_plain(em, skip_ok, init0,
+                                   torch.full_like(init0, BLANK_NEG))
+
+
+def blank_shard_alpha_plain(em, skip_ok, init0, skip0):
+    """alpha ``[t_s, B, S]`` of one T-shard: ``init0 [B, S]`` is the carry
+    before the first local step, ``skip0 [B, S]`` that step's skip source
+    (the carry is the skip source of every later step)."""
     skip_ok = skip_ok.bool()
-    pos = torch.arange(max_s, device=em.device)
-    alpha = torch.where(
-        pos[None, :] == 0, 0.0,
-        torch.full((batch, max_s), BLANK_NEG, dtype=em.dtype,
-                   device=em.device),
-    )
+    alpha = init0
     rows = []
-    for t in range(max_t):
-        # skip is illegal at t == 0: it would alias the s == 0 init cell
-        stay, adv, skp = _sources(alpha, skip_ok, t > 0)
+    for t in range(em.shape[0]):
+        stay, adv, skp = _sources(alpha, alpha if t > 0 else skip0, skip_ok)
         alpha = torch.logaddexp(torch.logaddexp(stay, adv), skp) + em[t]
         rows.append(alpha)
     return torch.stack(rows)
@@ -100,19 +129,24 @@ def _final_cells(alpha, input_lengths, target_lengths):
     return alpha[t_idx, b_idx, s_a], alpha[t_idx, b_idx, s_b], s_a, s_b
 
 
-def gather_nll(alpha, input_lengths, target_lengths):
-    """``nll[b] = -logaddexp`` of the two final cells (one when
-    ``L_b == 0``); 0 where ``inlen`` is outside ``[1, T]`` (the XLA scan's
-    final value is never set there)."""
+def gather_final(alpha, input_lengths, target_lengths):
+    """The log-add of the two final cells (one when ``L_b == 0``); 0 where
+    ``inlen`` is outside ``[1, T]`` (the XLA scan's final value is never set
+    there, and in a shard the final cells lie on another shard)."""
     a_a, a_b, _, _ = _final_cells(alpha, input_lengths, target_lengths)
     final = torch.where(target_lengths > 0, torch.logaddexp(a_a, a_b), a_a)
     own = (input_lengths >= 1) & (input_lengths <= alpha.shape[0])
-    return -torch.where(own, final, 0.0)
+    return torch.where(own, final, 0.0)
 
 
-def _inject_row(alpha, input_lengths, target_lengths, nll_bar):
-    """``d(nll * nll_bar) / d alpha`` at row ``input_length - 1``: minus
-    the bar times the softmax of the two final cells, ``[B, S]``."""
+def gather_nll(alpha, input_lengths, target_lengths):
+    """``nll[b] = -`` :func:`gather_final`."""
+    return -gather_final(alpha, input_lengths, target_lengths)
+
+
+def _inject_row(alpha, input_lengths, target_lengths, bar):
+    """``d(final * bar) / d alpha`` at row ``input_length - 1``: the bar
+    times the softmax of the two final cells, ``[B, S]``."""
     max_s = alpha.shape[2]
     a_a, a_b, s_a, s_b = _final_cells(alpha, input_lengths, target_lengths)
     has_label = target_lengths > 0
@@ -121,26 +155,39 @@ def _inject_row(alpha, input_lengths, target_lengths, nll_bar):
     w_b = torch.where(has_label, torch.exp(a_b - lse_f), 0.0)
     pos = torch.arange(max_s, device=alpha.device)[None, :]
     return (
-        torch.where(pos == s_a[:, None], (-nll_bar * w_a)[:, None], 0.0)
+        torch.where(pos == s_a[:, None], (bar * w_a)[:, None], 0.0)
         + torch.where((pos == s_b[:, None]) & has_label[:, None],
-                      (-nll_bar * w_b)[:, None], 0.0)
+                      (bar * w_b)[:, None], 0.0)
     ).to(alpha.dtype)
 
 
 def blank_grad_plain(alpha, skip_ok, input_lengths, target_lengths,
                      nll_bar):
     """``g = d(sum nll * nll_bar) / d em`` from the alpha lattice."""
+    return blank_shard_grad_plain(alpha, skip_ok, input_lengths,
+                                  target_lengths, -nll_bar,
+                                  torch.zeros_like(alpha[0]))
+
+
+def blank_shard_grad_plain(alpha, skip_ok, input_lengths, target_lengths,
+                           final_bar, g_seed):
+    """``g`` of one T-shard: ``final_bar [B]`` is the cotangent of the
+    final log-prob (injected at ``t == inlen_local - 1`` only), ``g_seed
+    [B, S]`` that of the outgoing boundary row (added at the last local
+    row)."""
     max_t = alpha.shape[0]
     skip_ok = skip_ok.bool()
-    inject = _inject_row(alpha, input_lengths, target_lengths, nll_bar)
+    inject = _inject_row(alpha, input_lengths, target_lengths, final_bar)
     g_next = torch.zeros_like(alpha[0])
     rows = [None] * max_t
     for t in range(max_t - 1, -1, -1):
         g_t = torch.where((input_lengths - 1 == t)[:, None], inject, 0.0)
-        if t < max_t - 1:
+        if t == max_t - 1:
+            g_t = g_t + g_seed
+        else:
             # weights of the step t -> t+1 into each cell, read off alpha[t]
             # (the step into t+1 >= 1, so skip is open)
-            stay, adv, skp = _sources(alpha[t], skip_ok, True)
+            stay, adv, skp = _sources(alpha[t], alpha[t], skip_ok)
             lse = torch.logaddexp(torch.logaddexp(stay, adv), skp)
             from_stay = g_next * torch.exp(stay - lse)
             from_adv = _shift_left(g_next * torch.exp(adv - lse), 1)
@@ -151,6 +198,18 @@ def blank_grad_plain(alpha, skip_ok, input_lengths, target_lengths,
     return torch.stack(rows)
 
 
+def init_row_grads(g0, init0, skip0, skip_ok):
+    """``(d init0, d skip0)`` from ``g0``, the gradient of the first local
+    alpha row: one step of the same three-way softmax weights, with the
+    skip source read off ``skip0``."""
+    stay, adv, skp = _sources(init0, skip0, skip_ok.bool())
+    lse = torch.logaddexp(torch.logaddexp(stay, adv), skp)
+    d_init0 = g0 * torch.exp(stay - lse) + _shift_left(
+        g0 * torch.exp(adv - lse), 1)
+    d_skip0 = _shift_left(g0 * torch.exp(skp - lse), 2)
+    return d_init0, d_skip0
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -159,44 +218,42 @@ def blank_grad_plain(alpha, skip_ok, input_lengths, target_lengths,
 def blank_alpha_kernel(em, skip_ok):
     """Launch the forward kernel: alpha ``[T, B, S]`` from em ``[T, B, S]``
     and the uint8 ``[B, S]`` skip mask."""
-    from ctc_tpu_torch.ops import cuda_build
-
     _require("blank_lattice_forward", em=em, skip_ok=skip_ok)
-    lib = cuda_build.load(_SOURCE)
-    max_t, batch, max_s = em.shape
-    alpha = torch.empty_like(em)
-    with torch.cuda.device(em.device):
-        stream = torch.cuda.current_stream(em.device).cuda_stream
-        rc = lib.blank_lattice_forward(
-            em.data_ptr(), skip_ok.data_ptr(), alpha.data_ptr(),
-            max_t, batch, max_s, stream,
-        )
-    _check(rc, "blank_lattice_forward")
-    launch_counts["blank_lattice_forward"] += 1
-    return alpha
+    return launch(_SOURCE, "blank_lattice_forward", launch_counts,
+                  (em, skip_ok), torch.empty_like(em), em.shape)
 
 
 def blank_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
                       nll_bar):
     """Launch the backward kernel: g ``[T, B, S]`` from alpha."""
-    from ctc_tpu_torch.ops import cuda_build
-
     _require("blank_lattice_backward", alpha=alpha, skip_ok=skip_ok,
              input_lengths=input_lengths, target_lengths=target_lengths,
              nll_bar=nll_bar)
-    lib = cuda_build.load(_SOURCE)
-    max_t, batch, max_s = alpha.shape
-    g = torch.empty_like(alpha)
-    with torch.cuda.device(alpha.device):
-        stream = torch.cuda.current_stream(alpha.device).cuda_stream
-        rc = lib.blank_lattice_backward(
-            alpha.data_ptr(), skip_ok.data_ptr(), input_lengths.data_ptr(),
-            target_lengths.data_ptr(), nll_bar.data_ptr(), g.data_ptr(),
-            max_t, batch, max_s, stream,
-        )
-    _check(rc, "blank_lattice_backward")
-    launch_counts["blank_lattice_backward"] += 1
-    return g
+    return launch(_SOURCE, "blank_lattice_backward", launch_counts,
+                  (alpha, skip_ok, input_lengths, target_lengths, nll_bar),
+                  torch.empty_like(alpha), alpha.shape)
+
+
+def blank_shard_alpha_kernel(em, skip_ok, init0, skip0):
+    """Launch the shard forward kernel: alpha ``[t_s, B, S]`` from em, the
+    skip mask and the ``[B, S]`` init rows."""
+    _require("blank_shard_forward", em=em, skip_ok=skip_ok, init0=init0,
+             skip0=skip0)
+    return launch(_SOURCE, "blank_shard_forward", launch_counts,
+                  (em, skip_ok, init0, skip0), torch.empty_like(em),
+                  em.shape)
+
+
+def blank_shard_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
+                            final_bar, g_seed):
+    """Launch the shard backward kernel: g ``[t_s, B, S]`` from alpha, the
+    final log-prob's cotangent and the boundary row's ``g_seed``."""
+    _require("blank_shard_backward", alpha=alpha, skip_ok=skip_ok,
+             input_lengths=input_lengths, target_lengths=target_lengths,
+             final_bar=final_bar, g_seed=g_seed)
+    return launch(_SOURCE, "blank_shard_backward", launch_counts,
+                  (alpha, skip_ok, input_lengths, target_lengths, final_bar,
+                   g_seed), torch.empty_like(alpha), alpha.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -280,3 +337,66 @@ def blank_lattice_nll_cuda(emissions, skip_ok, input_lengths, target_lengths,
         raise ValueError(f"no lattice implementation for {em.device}")
     args = _validate(em, skip_ok, input_lengths, target_lengths)
     return BlankLatticeNLL.apply(em, *args, em.is_cuda)
+
+
+class BlankShardLattice(torch.autograd.Function):
+    """One T-shard ``(em, init0, skip0) -> (final [B], boundary_out [B,
+    S])``; saves alpha for the analytic backward.  ``use_kernel`` picks the
+    CUDA kernels for both passes, else the plain version.
+
+    The cotangent of an output nobody reads (the last shard's boundary row)
+    arrives as zeros: ``ctx.set_materialize_grads`` keeps its default."""
+
+    @staticmethod
+    def forward(ctx, em, init0, skip0, skip_ok, input_lengths,
+                target_lengths, use_kernel):
+        em, init0, skip0 = em.contiguous(), init0.contiguous(), skip0.contiguous()
+        if use_kernel:
+            alpha = blank_shard_alpha_kernel(em, skip_ok, init0, skip0)
+        else:
+            alpha = blank_shard_alpha_plain(em, skip_ok, init0, skip0)
+        ctx.save_for_backward(alpha, init0, skip0, skip_ok, input_lengths,
+                              target_lengths)
+        ctx.use_kernel = use_kernel
+        final = gather_final(alpha, input_lengths, target_lengths)
+        return final, alpha[-1].clone()
+
+    @staticmethod
+    def backward(ctx, final_bar, boundary_bar):
+        (alpha, init0, skip0, skip_ok, input_lengths,
+         target_lengths) = ctx.saved_tensors
+        grad = (blank_shard_grad_kernel if ctx.use_kernel
+                else blank_shard_grad_plain)
+        g = grad(alpha, skip_ok, input_lengths, target_lengths,
+                 final_bar.contiguous(), boundary_bar.contiguous())
+        d_init0, d_skip0 = init_row_grads(g[0], init0, skip0, skip_ok)
+        return g, d_init0, d_skip0, None, None, None, None
+
+
+def blank_shard_lattice_plain(em, init0, skip0, skip_ok, input_lengths,
+                              target_lengths):
+    """One T-shard through the plain version, on any device; see
+    :func:`blank_shard_lattice_cuda`."""
+    args = _validate(em, skip_ok, input_lengths, target_lengths)
+    validate_rows(em, init0=init0, skip0=skip0)
+    return BlankShardLattice.apply(em, init0, skip0, *args, False)
+
+
+def blank_shard_lattice_cuda(em, init0, skip0, skip_ok, input_lengths,
+                             target_lengths):
+    """One sequence-shard of the blank-CTC lattice (port of
+    ``blank_shard_lattice_pallas``, layout ``[t_s, B, S]``).
+
+    ``init0`` / ``skip0`` are ``[B, S]``: the incoming boundary row for both
+    on an interior shard, :func:`blank_alpha_init` and the sentinel row on
+    shard 0.  ``input_lengths`` are SHARD-LOCAL (``inlen - t_offset``);
+    ``target_lengths`` count labels, not slots.  Returns ``(final [B],
+    boundary_out [B, S])``, differentiable in em and both init rows.  A
+    CUDA tensor launches the kernels; a CPU tensor runs the plain version;
+    any other device raises.
+    """
+    if em.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no lattice implementation for {em.device}")
+    args = _validate(em, skip_ok, input_lengths, target_lengths)
+    validate_rows(em, init0=init0, skip0=skip0)
+    return BlankShardLattice.apply(em, init0, skip0, *args, em.is_cuda)

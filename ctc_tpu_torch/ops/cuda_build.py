@@ -37,12 +37,21 @@ SIGNATURES = {
         "noblank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
         # alpha, inlen, tgt, nll_bar, g, T, B, L, stream
         "noblank_lattice_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # em, tgt, stay0, adv0, alpha, T, B, L, stream
+        "noblank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # alpha, inlen, tgt, final_bar, g_seed, g, T, B, L, stream
+        "noblank_shard_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "blank_lattice.cu": {
         # em, skip_ok, alpha, T, B, S, stream
         "blank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
         # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, stream
         "blank_lattice_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # em, skip_ok, init0, skip0, alpha, T, B, S, stream
+        "blank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # alpha, skip_ok, inlen, tgt, final_bar, g_seed, g, T, B, S, stream
+        "blank_shard_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P),
     },
 }
 

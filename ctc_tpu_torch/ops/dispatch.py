@@ -12,10 +12,14 @@ from __future__ import annotations
 from ctc_tpu_torch.ops.blank_lattice_cuda import (
     blank_lattice_nll_cuda,
     blank_lattice_nll_plain,
+    blank_shard_lattice_cuda,
+    blank_shard_lattice_plain,
 )
 from ctc_tpu_torch.ops.lattice_cuda import (
     noblank_lattice_nll_cuda,
     noblank_lattice_nll_plain,
+    noblank_shard_lattice_cuda,
+    noblank_shard_lattice_plain,
 )
 
 
@@ -66,3 +70,23 @@ def blank_lattice_nll(emissions, skip_ok, input_lengths, target_lengths, *,
                blank_lattice_nll_plain)
     return fn(emissions, skip_ok, input_lengths, target_lengths,
               layout=layout)
+
+
+def shard_lattice(em, stay0, adv0, input_lengths, target_lengths, *,
+                  implementation: str | None = None):
+    """One T-shard of the blank-free lattice, ``em [t_s, B, L]``, with its
+    ``[B, L]`` init rows and shard-local input lengths -> ``(final [B],
+    boundary_out [B, L])``."""
+    fn = _pick(em, implementation, noblank_shard_lattice_cuda,
+               noblank_shard_lattice_plain)
+    return fn(em, stay0, adv0, input_lengths, target_lengths)
+
+
+def blank_shard_lattice(em, init0, skip0, skip_ok, input_lengths,
+                        target_lengths, *, implementation: str | None = None):
+    """One T-shard of the blank-CTC lattice, ``em [t_s, B, S]``, with its
+    ``[B, S]`` init rows, the skip mask and shard-local input lengths ->
+    ``(final [B], boundary_out [B, S])``."""
+    fn = _pick(em, implementation, blank_shard_lattice_cuda,
+               blank_shard_lattice_plain)
+    return fn(em, init0, skip0, skip_ok, input_lengths, target_lengths)

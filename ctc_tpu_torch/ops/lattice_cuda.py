@@ -17,6 +17,15 @@ the same lattice.
   a CPU tensor.  It takes nothing else and never falls back.
 * :func:`noblank_lattice_nll_plain` is the plain PyTorch version on any
   device: the CPU path, and the oracle the kernels are held to.
+
+One T-shard of the sequence-parallel pipeline (port of
+``noblank_shard_lattice_pallas``) is the same recursion with its two
+boundaries handed in: ``stay0`` seeds the carry and ``adv0`` is the advance
+source of the first local step.  :func:`noblank_shard_lattice_cuda` and
+:func:`noblank_shard_lattice_plain` return ``(final [B], boundary_out [B,
+L])``: the final log-prob ``alpha[inlen_local-1, b, tgt-1]`` (0 unless ``1 <=
+inlen_local <= t_s``) and the last alpha row.  The whole lattice is the shard
+whose init rows are :func:`noblank_alpha_init` and the sentinel row.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import torch
 from ctc_tpu_torch.ops.logspace import NEG_SENTINEL
 
 #: launches of each kernel, counted where the wrapper launches it
-launch_counts = {"noblank_lattice_forward": 0, "noblank_lattice_backward": 0}
+launch_counts = {"noblank_lattice_forward": 0, "noblank_lattice_backward": 0,
+                 "noblank_shard_forward": 0, "noblank_shard_backward": 0}
 
 _SOURCE = "noblank_lattice.cu"
 
@@ -47,20 +57,36 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([pad, x[..., :-1]], dim=-1)
 
 
+def noblank_alpha_init(batch, width, *, dtype=torch.float32, device=None):
+    """The ``alpha(-1)`` row ``[B, W]``: 0 at ``l = 0``, the sentinel
+    elsewhere (shard 0's ``stay0``)."""
+    row = torch.full((batch, width), NEG_SENTINEL, dtype=dtype, device=device)
+    row[:, 0] = 0.0
+    return row
+
+
 def noblank_alpha_plain(em, target_lengths):
     """The full alpha lattice ``[T, B, L]`` (the backward's residual)."""
-    max_t, batch, max_l = em.shape
+    _, batch, max_l = em.shape
+    stay0 = noblank_alpha_init(batch, max_l, dtype=em.dtype, device=em.device)
+    # t == 0 has no advance branch; the sentinel row is still log-added
+    adv0 = torch.full_like(stay0, NEG_SENTINEL)
+    return noblank_shard_alpha_plain(em, target_lengths, stay0, adv0)
+
+
+def noblank_shard_alpha_plain(em, target_lengths, stay0, adv0):
+    """alpha ``[t_s, B, L]`` of one T-shard: ``stay0 [B, L]`` is the carry
+    before the first local step, ``adv0 [B, L]`` that step's advance
+    source (shifted here; no ``t > 0`` gate)."""
+    max_l = em.shape[2]
     pos = torch.arange(max_l, device=em.device)
     outside = pos[None, :] >= target_lengths[:, None]
-    sentinel = torch.full((batch, max_l), NEG_SENTINEL, dtype=em.dtype,
-                          device=em.device)
-    alpha = torch.where(pos[None, :] == 0, 0.0, sentinel)
+    alpha = stay0
     rows = []
-    for t in range(max_t):
-        # t == 0 has no advance branch; the sentinel row is still log-added
-        advance = _shift_right(alpha) if t > 0 else sentinel
+    for t in range(em.shape[0]):
+        advance = _shift_right(alpha if t > 0 else adv0)
         lse = torch.logaddexp(alpha, advance)
-        lse = torch.where(outside, sentinel, lse)
+        lse = torch.where(outside, NEG_SENTINEL, lse)
         alpha = lse + em[t]
         rows.append(alpha)
     return torch.stack(rows)
@@ -68,11 +94,21 @@ def noblank_alpha_plain(em, target_lengths):
 
 def noblank_grad_plain(alpha, input_lengths, target_lengths, nll_bar):
     """``g = d(sum nll * nll_bar) / d em`` from the alpha lattice."""
+    return noblank_shard_grad_plain(alpha, input_lengths, target_lengths,
+                                    -nll_bar, torch.zeros_like(alpha[0]))
+
+
+def noblank_shard_grad_plain(alpha, input_lengths, target_lengths, final_bar,
+                             g_seed):
+    """``g`` of one T-shard: ``final_bar [B]`` is the cotangent of the
+    final log-prob (injected at ``t == inlen_local - 1`` only), ``g_seed
+    [B, L]`` that of the outgoing boundary row (added at the last local
+    row)."""
     max_t, batch, max_l = alpha.shape
     pos = torch.arange(max_l, device=alpha.device)
     inside = (pos[None, :] < target_lengths[:, None]).to(alpha.dtype)
     inject = torch.where(
-        pos[None, :] == (target_lengths - 1)[:, None], -nll_bar[:, None], 0.0
+        pos[None, :] == (target_lengths - 1)[:, None], final_bar[:, None], 0.0
     ).to(alpha.dtype)  # [B, L], lands at t == input_length - 1
     zero = torch.zeros((batch, 1), dtype=alpha.dtype, device=alpha.device)
     g_next = torch.zeros((batch, max_l), dtype=alpha.dtype,
@@ -80,7 +116,9 @@ def noblank_grad_plain(alpha, input_lengths, target_lengths, nll_bar):
     rows = [None] * max_t
     for t in range(max_t - 1, -1, -1):
         g_t = torch.where((input_lengths - 1 == t)[:, None], inject, 0.0)
-        if t < max_t - 1:
+        if t == max_t - 1:
+            g_t = g_t + g_seed
+        else:
             # weights of the step t -> t+1, read off alpha[t] as
             # sigmoid(stay - advance): on degenerate lattices both branches
             # are exactly the sentinel and the split must be 1/2, 1/2
@@ -96,16 +134,36 @@ def noblank_grad_plain(alpha, input_lengths, target_lengths, nll_bar):
     return torch.stack(rows)
 
 
-def gather_nll(alpha, input_lengths, target_lengths):
-    """``nll[b] = -alpha[inlen-1, b, tgt-1]``; 0 where ``inlen`` is outside
-    ``[1, T]`` (the XLA path's final cell is never set there)."""
+def init_row_grads(g0, stay0, adv0, target_lengths):
+    """``(d stay0, d adv0)`` from ``g0``, the gradient of the first local
+    alpha row: one step of the same sigmoid branch weights."""
+    pos = torch.arange(g0.shape[1], device=g0.device)
+    inside = (pos[None, :] < target_lengths[:, None]).to(g0.dtype)
+    w_raw = torch.sigmoid(stay0 - _shift_right(adv0))
+    d_stay0 = g0 * w_raw * inside
+    d_shift = g0 * (1.0 - w_raw) * inside
+    d_adv0 = torch.cat([d_shift[:, 1:], torch.zeros_like(d_shift[:, :1])],
+                       dim=1)
+    return d_stay0, d_adv0
+
+
+def gather_final(alpha, input_lengths, target_lengths):
+    """``alpha[inlen-1, b, tgt-1]``; 0 where ``inlen`` is outside ``[1,
+    T]`` (the XLA path's final cell is never set there, and in a shard the
+    sample's final cell lies on another shard)."""
     max_t, batch, max_l = alpha.shape
     t_idx = (input_lengths - 1).clamp(0, max_t - 1).long()
     l_idx = (target_lengths - 1).clamp(0, max_l - 1).long()
     b_idx = torch.arange(batch, device=alpha.device)
     final = alpha[t_idx, b_idx, l_idx]
     own = (input_lengths >= 1) & (input_lengths <= max_t)
-    return -torch.where(own, final, 0.0)
+    return torch.where(own, final, 0.0)
+
+
+def gather_nll(alpha, input_lengths, target_lengths):
+    """``nll[b] = -alpha[inlen-1, b, tgt-1]``; 0 where ``inlen`` is outside
+    ``[1, T]``."""
+    return -gather_final(alpha, input_lengths, target_lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -137,45 +195,59 @@ def _require(kernel: str, **tensors) -> None:
         device = t.device
 
 
-def noblank_alpha_kernel(em, target_lengths):
-    """Launch the forward kernel: alpha ``[T, B, L]`` from em ``[T, B, L]``."""
+def launch(source, name, counts, operands, out, dims):
+    """Launch ``name`` from ``csrc/<source>`` on ``out``'s current stream:
+    pointers of ``operands`` then of ``out``, then the int ``dims``; raise
+    on a refused launch and count it in ``counts``."""
     from ctc_tpu_torch.ops import cuda_build
 
+    lib = cuda_build.load(source)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = getattr(lib, name)(*(t.data_ptr() for t in operands),
+                                out.data_ptr(), *dims, stream)
+    _check(rc, name)
+    counts[name] += 1
+    return out
+
+
+def noblank_alpha_kernel(em, target_lengths):
+    """Launch the forward kernel: alpha ``[T, B, L]`` from em ``[T, B, L]``."""
     _require("noblank_lattice_forward", em=em, target_lengths=target_lengths)
-    lib = cuda_build.load(_SOURCE)
-    max_t, batch, max_l = em.shape
-    alpha = torch.empty_like(em)
-    with torch.cuda.device(em.device):
-        stream = torch.cuda.current_stream(em.device).cuda_stream
-        rc = lib.noblank_lattice_forward(
-            em.data_ptr(), target_lengths.data_ptr(), alpha.data_ptr(),
-            max_t, batch, max_l, stream,
-        )
-    _check(rc, "noblank_lattice_forward")
-    launch_counts["noblank_lattice_forward"] += 1
-    return alpha
+    return launch(_SOURCE, "noblank_lattice_forward", launch_counts,
+                  (em, target_lengths), torch.empty_like(em), em.shape)
 
 
 def noblank_grad_kernel(alpha, input_lengths, target_lengths, nll_bar):
     """Launch the backward kernel: g ``[T, B, L]`` from alpha."""
-    from ctc_tpu_torch.ops import cuda_build
-
     _require("noblank_lattice_backward", alpha=alpha,
              input_lengths=input_lengths, target_lengths=target_lengths,
              nll_bar=nll_bar)
-    lib = cuda_build.load(_SOURCE)
-    max_t, batch, max_l = alpha.shape
-    g = torch.empty_like(alpha)
-    with torch.cuda.device(alpha.device):
-        stream = torch.cuda.current_stream(alpha.device).cuda_stream
-        rc = lib.noblank_lattice_backward(
-            alpha.data_ptr(), input_lengths.data_ptr(),
-            target_lengths.data_ptr(), nll_bar.data_ptr(), g.data_ptr(),
-            max_t, batch, max_l, stream,
-        )
-    _check(rc, "noblank_lattice_backward")
-    launch_counts["noblank_lattice_backward"] += 1
-    return g
+    return launch(_SOURCE, "noblank_lattice_backward", launch_counts,
+                  (alpha, input_lengths, target_lengths, nll_bar),
+                  torch.empty_like(alpha), alpha.shape)
+
+
+def noblank_shard_alpha_kernel(em, target_lengths, stay0, adv0):
+    """Launch the shard forward kernel: alpha ``[t_s, B, L]`` from em and
+    the ``[B, L]`` init rows."""
+    _require("noblank_shard_forward", em=em, target_lengths=target_lengths,
+             stay0=stay0, adv0=adv0)
+    return launch(_SOURCE, "noblank_shard_forward", launch_counts,
+                  (em, target_lengths, stay0, adv0), torch.empty_like(em),
+                  em.shape)
+
+
+def noblank_shard_grad_kernel(alpha, input_lengths, target_lengths,
+                              final_bar, g_seed):
+    """Launch the shard backward kernel: g ``[t_s, B, L]`` from alpha, the
+    final log-prob's cotangent and the boundary row's ``g_seed``."""
+    _require("noblank_shard_backward", alpha=alpha,
+             input_lengths=input_lengths, target_lengths=target_lengths,
+             final_bar=final_bar, g_seed=g_seed)
+    return launch(_SOURCE, "noblank_shard_backward", launch_counts,
+                  (alpha, input_lengths, target_lengths, final_bar, g_seed),
+                  torch.empty_like(alpha), alpha.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +274,19 @@ def _validate(em, input_lengths, target_lengths):
             )
         out.append(x.to(torch.int32).contiguous())
     return out
+
+
+def validate_rows(em, **rows):
+    """Check that every init row is a float32 ``[B, W]`` tensor on em's
+    device, ``W`` the lattice width of em ``[t_s, B, W]``."""
+    want = (em.shape[1], em.shape[2])
+    for name, row in rows.items():
+        if tuple(row.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}, got "
+                             f"{tuple(row.shape)}")
+        if row.dtype != torch.float32 or row.device != em.device:
+            raise ValueError(f"{name} must be float32 on {em.device}, got "
+                             f"{row.dtype} on {row.device}")
 
 
 class NoBlankLatticeNLL(torch.autograd.Function):
@@ -263,3 +348,64 @@ def noblank_lattice_nll_cuda(emissions, input_lengths, target_lengths, *,
         raise ValueError(f"no lattice implementation for {em.device}")
     inlen, tgt = _validate(em, input_lengths, target_lengths)
     return NoBlankLatticeNLL.apply(em, inlen, tgt, em.is_cuda)
+
+
+class NoBlankShardLattice(torch.autograd.Function):
+    """One T-shard ``(em, stay0, adv0) -> (final [B], boundary_out [B,
+    L])``; saves alpha for the analytic backward.  ``use_kernel`` picks the
+    CUDA kernels for both passes, else the plain version.
+
+    The cotangent of an output nobody reads (the last shard's boundary row)
+    arrives as zeros: ``ctx.set_materialize_grads`` keeps its default."""
+
+    @staticmethod
+    def forward(ctx, em, stay0, adv0, input_lengths, target_lengths,
+                use_kernel):
+        em, stay0, adv0 = em.contiguous(), stay0.contiguous(), adv0.contiguous()
+        if use_kernel:
+            alpha = noblank_shard_alpha_kernel(em, target_lengths, stay0, adv0)
+        else:
+            alpha = noblank_shard_alpha_plain(em, target_lengths, stay0, adv0)
+        ctx.save_for_backward(alpha, stay0, adv0, input_lengths,
+                              target_lengths)
+        ctx.use_kernel = use_kernel
+        final = gather_final(alpha, input_lengths, target_lengths)
+        return final, alpha[-1].clone()
+
+    @staticmethod
+    def backward(ctx, final_bar, boundary_bar):
+        alpha, stay0, adv0, input_lengths, target_lengths = ctx.saved_tensors
+        grad = (noblank_shard_grad_kernel if ctx.use_kernel
+                else noblank_shard_grad_plain)
+        g = grad(alpha, input_lengths, target_lengths,
+                 final_bar.contiguous(), boundary_bar.contiguous())
+        d_stay0, d_adv0 = init_row_grads(g[0], stay0, adv0, target_lengths)
+        return g, d_stay0, d_adv0, None, None, None
+
+
+def noblank_shard_lattice_plain(em, stay0, adv0, input_lengths,
+                                target_lengths):
+    """One T-shard through the plain version, on any device; see
+    :func:`noblank_shard_lattice_cuda`."""
+    inlen, tgt = _validate(em, input_lengths, target_lengths)
+    validate_rows(em, stay0=stay0, adv0=adv0)
+    return NoBlankShardLattice.apply(em, stay0, adv0, inlen, tgt, False)
+
+
+def noblank_shard_lattice_cuda(em, stay0, adv0, input_lengths,
+                               target_lengths):
+    """One sequence-shard of the blank-free lattice (port of
+    ``noblank_shard_lattice_pallas``, layout ``[t_s, B, L]``).
+
+    ``stay0`` / ``adv0`` are ``[B, L]``: the incoming boundary row for both
+    on an interior shard, :func:`noblank_alpha_init` and the sentinel row on
+    shard 0.  ``input_lengths`` are SHARD-LOCAL (``inlen - t_offset``).
+    Returns ``(final [B], boundary_out [B, L])``, differentiable in em and
+    both init rows.  A CUDA tensor launches the kernels; a CPU tensor runs
+    the plain version; any other device raises.
+    """
+    if em.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no lattice implementation for {em.device}")
+    inlen, tgt = _validate(em, input_lengths, target_lengths)
+    validate_rows(em, stay0=stay0, adv0=adv0)
+    return NoBlankShardLattice.apply(em, stay0, adv0, inlen, tgt, em.is_cuda)

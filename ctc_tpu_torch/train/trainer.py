@@ -1,5 +1,6 @@
 """Training engine: train/eval steps and an epoch-loop Trainer (port of
-``ctc_tpu/train/trainer.py``, single device).
+``ctc_tpu/train/trainer.py``: one device, or the lattice's T axis split
+into ``seq_parallel`` shards).
 
 * The optimizer is ``torch.optim.Adam`` with ``weight_decay`` as L2 added to
   the gradient — optax's ``add_decayed_weights -> scale_by_adam ->
@@ -68,7 +69,7 @@ def _model_input(feats):
 
 
 def make_train_step(loss_kind: str = "noblank", implementation=None,
-                    ce_weight: float = 0.0, schedule=None):
+                    ce_weight: float = 0.0, schedule=None, loss_fn=None):
     """Build the train step ``(state, batch, generator) -> (state,
     metrics)``.
 
@@ -77,9 +78,11 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
     ``input_lengths [B]``, ``target_lengths [B]``, ``future_target [B]``.
     ``ce_weight`` > 0 adds a cross-entropy term on the final timestep
     against the future target.  ``schedule(k)`` is the learning rate of
-    update k.
+    update k.  ``loss_fn`` overrides the registry lookup (the
+    sequence-sharded loss of
+    :func:`ctc_tpu_torch.parallel.seq_lattice.make_seq_sharded_loss`).
     """
-    loss_fn = losses.LOSS_FNS[loss_kind]
+    loss_fn = loss_fn or losses.LOSS_FNS[loss_kind]
 
     def train_step(state: TrainState, batch, generator=None):
         model, opt = state.model, state.optimizer
@@ -108,10 +111,12 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
     return train_step
 
 
-def make_eval_step(loss_kind: str = "noblank", implementation=None):
+def make_eval_step(loss_kind: str = "noblank", implementation=None,
+                   loss_fn=None):
     """Build the eval step ``(state, batch) -> metrics`` (running BatchNorm
-    statistics, no dropout, no gradient)."""
-    loss_fn = losses.LOSS_FNS[loss_kind]
+    statistics, no dropout, no gradient); ``loss_fn`` as in
+    :func:`make_train_step`."""
+    loss_fn = loss_fn or losses.LOSS_FNS[loss_kind]
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -132,6 +137,11 @@ class Trainer:
 
     The data-loader contract is any iterable of host (numpy) batch dicts;
     epochs re-iterate the loader.
+
+    ``seq_parallel`` > 1 splits the lattice's T axis into that many shards
+    on the trainer's device (:func:`ctc_tpu_torch.parallel.make_seq_mesh`)
+    and trains and evaluates through the sequence-sharded loss, with the
+    batch split into ``seq_microbatches`` (default ``seq_parallel``).
     """
 
     def __init__(
@@ -152,6 +162,8 @@ class Trainer:
         train_size: float = 1.0,
         val_size: float = 1.0,
         device="cuda",
+        seq_parallel: int = 0,
+        seq_microbatches: int = 0,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -161,9 +173,26 @@ class Trainer:
         effective_steps = max(int(steps_per_epoch * min(train_size, 1.0)), 1)
         self.schedule = step_decay_schedule(lr, lr_decay_epochs,
                                             effective_steps)
+        seq_loss_fn = None
+        if seq_parallel > 1:
+            if loss_kind not in ("noblank", "binary", "blank"):
+                raise ValueError(
+                    f"seq_parallel needs a lattice loss, got {loss_kind!r}"
+                )
+            from ctc_tpu_torch.parallel import (
+                make_seq_mesh,
+                make_seq_sharded_loss,
+            )
+
+            seq_loss_fn = make_seq_sharded_loss(
+                make_seq_mesh(seq_parallel, self.device), loss_kind,
+                num_microbatches=(seq_microbatches or None),
+            )
         self.train_step = make_train_step(loss_kind, implementation,
-                                          ce_weight, self.schedule)
-        self.eval_step = make_eval_step(loss_kind, implementation)
+                                          ce_weight, self.schedule,
+                                          loss_fn=seq_loss_fn)
+        self.eval_step = make_eval_step(loss_kind, implementation,
+                                        loss_fn=seq_loss_fn)
         self.cache_dir = cache_dir
         self.print_freq = print_freq
         self.print_test_freq = (print_freq if print_test_freq is None

@@ -113,7 +113,7 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     [
         (["--data-parallel", "2"], "item 14"),
         (["--model-parallel", "2"], "item 14"),
-        (["--seq-parallel", "2"], "item 14"),
+        (["--seq-parallel", "2", "--data-parallel", "2"], "item 14"),
         (["--num-hosts", "2"], "item 14"),
         (["--steps-per-dispatch", "2"], "item 14"),
         (["--accum-grad", "2"], "item 14"),

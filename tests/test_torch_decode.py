@@ -23,6 +23,7 @@ from ctc_tpu_torch import decode as tdecode
 from ctc_tpu_torch.cli.main import main
 from ctc_tpu_torch.eval import video as tvideo
 from ctc_tpu_torch.models import LSTMHead, lstm_head_from_jax
+from ctc_tpu_torch.parallel import make_seq_mesh
 
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -153,8 +154,9 @@ def test_decode_windows_refusals():
     _, _, model, batches = _carried_models("noblank")
     with pytest.raises(ValueError, match="blank"):
         tvideo.decode_windows(model, batches, blank=-1, beam_width=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tvideo.decode_windows(model, batches, seq_mesh=object())
+    with pytest.raises(ValueError, match="seq_mesh"):
+        tvideo.decode_windows(model, batches, blank=0, beam_width=4,
+                              seq_mesh=make_seq_mesh(4))
     with pytest.raises(ValueError, match="blank-free"):
         tvideo.align_windows(model, batches, loss_kind="blank")
 

@@ -189,9 +189,13 @@ def test_kernels_match_plain_on_card(rng, cuda_device, T, B, L, degenerate):
         out[name] = (nll.detach().cpu().numpy(), e.grad.cpu().numpy(),
                      launched)
     assert out["kernel"][2] == {"noblank_lattice_forward": 1,
-                                "noblank_lattice_backward": 1}
+                                "noblank_lattice_backward": 1,
+                                "noblank_shard_forward": 0,
+                                "noblank_shard_backward": 0}
     assert out["plain"][2] == {"noblank_lattice_forward": 0,
-                               "noblank_lattice_backward": 0}
+                               "noblank_lattice_backward": 0,
+                               "noblank_shard_forward": 0,
+                               "noblank_shard_backward": 0}
     np.testing.assert_allclose(out["kernel"][0], out["plain"][0], **LOSS_TOL)
     np.testing.assert_allclose(out["kernel"][1], out["plain"][1], **GRAD_TOL)
     g = out["kernel"][1]
