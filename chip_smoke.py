@@ -8,9 +8,12 @@ lattice's T axis split into 4 shards (``--seq-parallel 4``), decodes from
 the checkpoints they wrote (greedy, beam, Viterbi alignment, and the
 sharded greedy decode), checks that each run went through its kernels, and
 times each kernel beside its plain version, its bound and, where one
-exists, the PyTorch call that computes the same function.  Prints one JSON
-line per phase; the last line is ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero.
+exists, the PyTorch call that computes the same function.  Then the same
+for the ten forward-lattice probe kernels, and both probe entry points
+(``python -m ctc_tpu_torch.probes.fwd_ops`` and ``.expdomain_fwd``) at the
+bench shape, each in a process of its own.  Prints one JSON line per
+phase; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+exits non-zero.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -124,6 +127,33 @@ SEQ_MAIN = {"noblank": (64, 256, 64, 8), "blank": (64, 256, 32, 4)}  # T B L M
 # B, L over 4 shards and 4 microbatches, so one shard is t_s 1024, B 4
 SEQ_LONG = {"noblank": (4096, 16, 24, 4), "blank": (4096, 16, 24, 4)}
 FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+
+# the forward-lattice probes (ops/probe_cuda.py): their entry points' bench
+# shape, and an edge shape with T not a multiple of the chunk, L not a
+# multiple of 8 (L_PAD 24) and B not a multiple of the kernels' 8-wide tile
+PROBE_SHAPE = BENCH_SHAPE
+PROBE_EDGE = (37, 100, 21)
+PROBE_CHUNK = 16
+PROBE_ITERS = 20  # per timed run of the entry points
+# each kernel repeats its plain version's f32 operations in order (expf,
+# log1pf, fmaxf, IEEE divide; no fast-math): rtol 1e-6; exp-domain values
+# run down toward the denormals, hence the tiny atol there
+PROBE_RTOL = 1e-6
+PROBE_ATOL = {"log": 1e-6, "exp": 1e-30}
+_PROBES_CU = "ctc_tpu_torch/csrc/fwd_probes.cu"
+PROBE_KERNELS = {
+    **{f"probe_{body}": {"route": "cuda", "source": _PROBES_CU,
+                         "replaces": "probe_fwd_ops.py:30"}
+       for body in ("copy", "add", "roll", "lse", "lse_manual", "lse_exp2")},
+    "probe_noout": {"route": "cuda", "source": _PROBES_CU,
+                    "replaces": "probe_fwd_ops.py:106"},
+    "probe_fwd_log": {"route": "cuda", "source": _PROBES_CU,
+                      "replaces": "probe_expdomain_fwd.py:42"},
+    "probe_fwd_exp": {"route": "cuda", "source": _PROBES_CU,
+                      "replaces": "probe_expdomain_fwd.py:66"},
+    "probe_fwd_exp_renorm": {"route": "cuda", "source": _PROBES_CU,
+                             "replaces": "probe_expdomain_fwd.py:89"},
+}
 
 
 def hbm_rate(name: str) -> float:
@@ -1329,6 +1359,183 @@ def phase_times_seq(card, name):
     return result
 
 
+def probe_cases(shape, device):
+    """The ten probe kernels at ``shape`` (T, B, L) on their entry points'
+    inputs: name -> (kernel, plain, profiler symbol, bytes, operations,
+    domain, library call or None, what the library call is or why there is
+    none).  Off the bench shape three samples are outside everywhere, and
+    the carry-only variant runs T cut to a multiple of the chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctc_tpu_torch.ops import probe_cuda as pc
+    from ctc_tpu_torch.ops.logspace import NEG_SENTINEL
+    from ctc_tpu_torch.probes import expdomain_fwd, fwd_ops
+
+    T, B, L = shape
+    l_pad = pc.pad_rows(L)
+    em = fwd_ops.make_inputs(T, B, L, device)
+    ex, outside = expdomain_fwd.make_inputs(T, B, L, device)
+    if shape != PROBE_SHAPE:
+        outside[:, :3] = 1.0
+    t_cut = T - T % PROBE_CHUNK
+    em_cut = em[:t_cut]
+    cells = T * l_pad * B  # the padded slab each step works on
+    wide = 4 * cells  # one [T, L_PAD, B] f32 tensor
+    pad = (0, 0, 0, l_pad - L)
+    init = torch.full((l_pad, B), NEG_SENTINEL, device=device)
+    init[0] = 0.0
+    no_scan = ("null: no PyTorch call runs a recursion along T whose step "
+               "mixes neighbouring label rows")
+    library = {
+        "copy": (lambda: F.pad(em, pad), "F.pad"),
+        "add": (lambda: torch.cumsum(F.pad(em, pad), dim=0) + init,
+                "F.pad, torch.cumsum and the init add (3 calls)"),
+    }
+    # f32 operations per padded cell, as each body does them
+    body_ops = {"copy": 0, "add": 1, "roll": 3, "lse": 9, "lse_manual": 8,
+                "lse_exp2": 7}
+    cases = {}
+    for body, ops in body_ops.items():
+        lib, what = library.get(body, (None, no_scan))
+        cases[f"probe_{body}"] = (
+            lambda b=body: pc.probe_body(em, b),
+            lambda b=body: pc.probe_body_plain(em, b),
+            # em in, [T, L_PAD, B] out
+            "fwd_ops_kernel", 4 * T * L * B + wide, ops * cells, "log",
+            lib, what)
+    cases["probe_noout"] = (
+        lambda: pc.probe_noout(em_cut, PROBE_CHUNK),
+        lambda: pc.probe_noout_plain(em_cut, PROBE_CHUNK),
+        # em in, one [L_PAD, B] carry out per chunk
+        "fwd_ops_kernel",
+        4 * t_cut * L * B + 4 * (t_cut // PROBE_CHUNK) * l_pad * B,
+        9 * t_cut * l_pad * B, "log", None, no_scan)
+    # em and the [L_PAD, B] mask in, [T, L_PAD, B] out
+    row10_bytes = 2 * wide + 4 * l_pad * B
+    cases["probe_fwd_log"] = (
+        lambda: pc.probe_fwd_log(ex, outside),
+        lambda: pc.probe_fwd_log_plain(ex, outside),
+        # two shift selects, logaddexp (7), the outside select, the add
+        "expdomain_kernel", row10_bytes, 11 * cells, "log", None, no_scan)
+    cases["probe_fwd_exp"] = (
+        lambda: pc.probe_fwd_exp(ex, outside),
+        lambda: pc.probe_fwd_exp_plain(ex, outside),
+        # exp, the shift select, add, multiply, the outside select
+        "expdomain_kernel", row10_bytes, 5 * cells, "exp", None, no_scan)
+    cases["probe_fwd_exp_renorm"] = (
+        lambda: pc.probe_fwd_exp_renorm(ex, outside, PROBE_CHUNK),
+        lambda: pc.probe_fwd_exp_renorm_plain(ex, outside, PROBE_CHUNK),
+        # as exp, plus a max and a divide per cell once per chunk
+        "expdomain_kernel", row10_bytes,
+        5 * cells + 2 * (cells // PROBE_CHUNK), "exp", None, no_scan)
+    return cases, em
+
+
+def phase_probes(card, name):
+    """Each probe kernel against its plain version on the card at the bench
+    and the edge shape, then its times in turns (plain, kernel, kernel,
+    plain), its device time, its bound and, for copy and add, the PyTorch
+    calls that compute the same function."""
+    import torch
+
+    from ctc_tpu_torch.ops import probe_cuda as pc
+
+    rate = hbm_rate(name)
+    result = {}
+    for label, shape in (("bench", PROBE_SHAPE), ("edge", PROBE_EDGE)):
+        cases, em = probe_cases(shape, "cuda")
+        if shape[0] % PROBE_CHUNK:
+            try:
+                pc.probe_noout(em, PROBE_CHUNK)
+            except ValueError:
+                pass
+            else:
+                fail(f"probe_noout took T={shape[0]}, not a multiple of "
+                     f"the chunk {PROBE_CHUNK}")
+        iters = 50 if label == "bench" else 200
+        for kname, (kernel, plain, symbol, nbytes, nops, domain, lib,
+                    lib_what) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            atol = PROBE_ATOL[domain]
+            check_close(f"probe {kname} {label}", got, want, PROBE_RTOL, atol)
+            lib_ms = None
+            if lib is not None:
+                # the yardstick computes the same function (cumsum sums in
+                # another order)
+                check_close(f"probe {kname} {label} library", lib(), got,
+                            1e-4, 1e-4)
+                lib_ms = time_ms(lib, iters)
+            p1 = time_ms(plain, 3)
+            k1 = time_ms(kernel, iters)
+            k2 = time_ms(kernel, iters)
+            p2 = time_ms(plain, 3)
+            bytes_ms = nbytes / rate * 1e3
+            ops_ms = nops / FP32_PEAK * 1e3
+            row = {
+                "phase": "probes", "kernel": kname, "shape": label,
+                "shape_TBL": list(shape), "l_pad": pc.pad_rows(shape[2]),
+                "T_run": (shape[0] - shape[0] % PROBE_CHUNK
+                          if kname == "probe_noout" else shape[0]),
+                "chunk": PROBE_CHUNK,
+                "max_abs_dev": max_dev(got, want),
+                "rtol_atol": [PROBE_RTOL, atol],
+                "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+                "kernel_device_ms": kernel_device_ms(kernel, symbol),
+                "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": nops,
+                "hbm_bytes_per_s": rate, "fp32_ops_per_s": FP32_PEAK,
+                "library_ms": lib_ms, "library_call": lib_what,
+                "card": card,
+            }
+            emit(row)
+            result[(kname, label)] = row
+    return result
+
+
+def phase_probe_entry_points(probe_times):
+    """Both probe entry points as a user runs them, each in a process of
+    its own on the card: every variant's kernel launched in the run (one
+    warm-up call and ``PROBE_ITERS`` timed calls per buffer set) and agrees
+    with its plain version as closely as in phase ``probes`` on the same
+    inputs.  Returns each kernel's row."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for module, timed_runs in (("fwd_ops", 1), ("expdomain_fwd", 2)):
+        argv = ["-m", f"ctc_tpu_torch.probes.{module}", "--iters",
+                str(PROBE_ITERS)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"probe entry point {module} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.splitlines()
+        rows = [json.loads(x) for x in lines if x.startswith("{")]
+        want_launches = timed_runs * (PROBE_ITERS + 1)
+        for row in rows:
+            if row["launches"] != want_launches:
+                fail(f"probe {module}: {row['kernel']} launched "
+                     f"{row['launches']} times, expected {want_launches}")
+            parity = probe_times[(row["kernel"], "bench")]["max_abs_dev"]
+            if row["max_abs_dev"] is None or row["max_abs_dev"] > parity:
+                fail(f"probe {module}: {row['kernel']} max |dev| "
+                     f"{row['max_abs_dev']}, phase probes {parity}")
+            runs[row["kernel"]] = row
+        emit({"phase": "probe_entry", "module": module, "argv": argv,
+              "seconds": seconds,
+              "lines": [x for x in lines if not x.startswith("{")],
+              "variants": rows})
+    if set(runs) != set(PROBE_KERNELS):
+        fail(f"probe entry points ran {sorted(runs)}, expected "
+             f"{sorted(PROBE_KERNELS)}")
+    return runs
+
+
 def main() -> None:
     import torch
 
@@ -1365,6 +1572,8 @@ def main() -> None:
         phase_profile(family, classes, (T, B, L))
     times = {**phase_times(card, name), **phase_times_blank(card, name),
              **phase_times_seq(card, name)}
+    probe_times = phase_probes(card, name)
+    probe_runs = phase_probe_entry_points(probe_times)
     kernels = []
     for kname, meta in KERNELS.items():
         t = times[(kname, "main_path")]
@@ -1384,6 +1593,18 @@ def main() -> None:
             "name": kname, **meta,
             "launches": run_launches[kname],
             "max_abs_err": err,
+            "ms": t["kernel_ms"], "device_ms": t["kernel_device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    # the probes' path is their entry points at the bench shape
+    for kname, meta in PROBE_KERNELS.items():
+        t = probe_times[(kname, "bench")]
+        kernels.append({
+            "name": kname, **meta,
+            "launches": probe_runs[kname]["launches"],
+            "max_abs_err": t["max_abs_dev"],
             "ms": t["kernel_ms"], "device_ms": t["kernel_device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -35,8 +35,9 @@ class SeqMesh:
         return {SEQ_AXIS: len(self.devices)}
 
 
-def make_seq_mesh(n: int, device="cpu") -> SeqMesh:
-    """An ``n``-shard seq mesh with every shard on ``device``."""
+def make_seq_mesh(n: int, device="cuda") -> SeqMesh:
+    """An ``n``-shard seq mesh with every shard on ``device`` (the card
+    unless the caller asks for the CPU)."""
     if n < 1:
         raise ValueError(f"a seq mesh needs at least one shard, got {n}")
     return SeqMesh(devices=(torch.device(device),) * n)

@@ -156,7 +156,7 @@ def test_decode_windows_refusals():
         tvideo.decode_windows(model, batches, blank=-1, beam_width=4)
     with pytest.raises(ValueError, match="seq_mesh"):
         tvideo.decode_windows(model, batches, blank=0, beam_width=4,
-                              seq_mesh=make_seq_mesh(4))
+                              seq_mesh=make_seq_mesh(4, "cpu"))
     with pytest.raises(ValueError, match="blank-free"):
         tvideo.align_windows(model, batches, loss_kind="blank")
 

@@ -65,6 +65,59 @@ def test_every_module_imports_with_jax_blocked():
     assert int(proc.stdout.split()[-1]) >= 25
 
 
+def _cpu_device_defaults(tree):
+    """``name:line`` of every public function (or dunder method) with a
+    ``device`` parameter, and every class field ``device``, whose default
+    is the string ``"cpu"``: an entry point runs on the card unless the
+    caller asks for the CPU."""
+    def is_cpu(node):
+        return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.split(":")[0] == "cpu")
+
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            name = node.name
+            if name.startswith("_") and not name.endswith("__"):
+                continue
+            a = node.args
+            positional = a.posonlyargs + a.args
+            pairs = list(zip(positional[len(positional) - len(a.defaults):],
+                             a.defaults))
+            pairs += [(arg, d) for arg, d in zip(a.kwonlyargs, a.kw_defaults)
+                      if d is not None]
+            if any(arg.arg == "device" and is_cpu(d) for arg, d in pairs):
+                yield f"{name}:{node.lineno}"
+        elif isinstance(node, ast.ClassDef):
+            for item in node.body:
+                if (isinstance(item, ast.AnnAssign)
+                        and isinstance(item.target, ast.Name)
+                        and item.target.id == "device" and is_cpu(item.value)):
+                    yield f"{node.name}.device:{item.lineno}"
+
+
+def test_cpu_device_default_predicate():
+    tree = ast.parse(
+        "def make_seq_mesh(n, device='cpu'): pass\n"
+        "def f(*, device='cpu:0'): pass\n"
+        "def _private(device='cpu'): pass\n"
+        "def g(n, device='cuda', other='cpu'): pass\n"
+        "class C:\n"
+        "    def __init__(self, device='cpu'): pass\n"
+        "    device: str = 'cpu'\n"
+    )
+    assert sorted(_cpu_device_defaults(tree)) == [
+        "C.device:7", "__init__:6", "f:2", "make_seq_mesh:1"]
+
+
+def test_no_public_function_defaults_to_the_cpu():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{path.relative_to(ROOT)}: {hit}"
+                for hit in _cpu_device_defaults(tree)]
+    assert not bad, f"entry points default to cuda: {bad}"
+
+
 def test_no_dot_cuda_calls():
     files = _port_files() + sorted((ROOT / "tests").glob("test_torch_*.py"))
     bad = []

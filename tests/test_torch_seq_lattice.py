@@ -305,8 +305,8 @@ def _unsharded_nll(mode):
 def test_pipeline_matches_jax(mode, m):
     """Value and gradient against JAX's XLA-scan pipeline and against the
     port's unsharded loss, with finals owned by every shard."""
-    fn = make_seq_sharded_lattice_nll(make_seq_mesh(N_SHARDS), mode=mode,
-                                      num_microbatches=m)
+    fn = make_seq_sharded_lattice_nll(make_seq_mesh(N_SHARDS, "cpu"),
+                                      mode=mode, num_microbatches=m)
     nll, g = _torch_pipeline(fn, mode)
     want_nll, want_g = _jax_pipeline(mode, "xla")
     np.testing.assert_allclose(nll, want_nll, **TOL)
@@ -320,7 +320,8 @@ def test_pipeline_matches_jax(mode, m):
 def test_pipeline_matches_jax_pallas_shards(mode):
     """Against JAX's pipeline of boundary-init Pallas shards (interpret
     mode), one case per lattice family."""
-    fn = make_seq_sharded_lattice_nll(make_seq_mesh(N_SHARDS), mode=mode)
+    fn = make_seq_sharded_lattice_nll(make_seq_mesh(N_SHARDS, "cpu"),
+                                      mode=mode)
     nll, g = _torch_pipeline(fn, mode)
     want_nll, want_g = _jax_pipeline(mode, "pallas")
     np.testing.assert_allclose(nll, want_nll, **TOL)
@@ -328,7 +329,7 @@ def test_pipeline_matches_jax_pallas_shards(mode):
 
 
 def test_pipeline_refusals():
-    mesh = make_seq_mesh(N_SHARDS)
+    mesh = make_seq_mesh(N_SHARDS, "cpu")
     em = torch.zeros((8, 6, 3))
     lens = torch.ones(6, dtype=torch.int32)
     with pytest.raises(ValueError, match="num_microbatches"):
@@ -379,7 +380,7 @@ def test_sharded_greedy_decode_matches_jax(case, blank):
     else:
         logits, in_len = _boundary_repeat_logits()
     dec, lens = make_seq_sharded_greedy_decode(
-        make_seq_mesh(N_SHARDS), blank=blank)(torch.tensor(logits),
+        make_seq_mesh(N_SHARDS, "cpu"), blank=blank)(torch.tensor(logits),
                                                torch.tensor(in_len))
     want_dec, want_lens = _jax_seq_decode(logits, in_len, blank)
     np.testing.assert_array_equal(dec.numpy(), want_dec)
@@ -513,7 +514,7 @@ def test_decode_windows_seq_mesh_matches_unsharded():
     model.reset_parameters(torch.Generator().manual_seed(1))
     for blank in (0, -1):
         got = tvideo.decode_windows(model, batches, blank=blank,
-                                    seq_mesh=make_seq_mesh(N_SHARDS))
+                                    seq_mesh=make_seq_mesh(N_SHARDS, "cpu"))
         want = tvideo.decode_windows(model, batches, blank=blank)
         np.testing.assert_array_equal(got["decoded"], want["decoded"])
         np.testing.assert_array_equal(got["lengths"], want["lengths"])
