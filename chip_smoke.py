@@ -9,7 +9,8 @@ the checkpoints they wrote (greedy, beam, Viterbi alignment, and the
 sharded greedy decode), checks that each run went through its kernels, and
 times each kernel beside its plain version, its bound and, where one
 exists, the PyTorch call that computes the same function.  Then the same
-for the ten forward-lattice probe kernels, and both probe entry points
+for the ten forward-lattice probe kernels at three shapes (the last at the
+edges of the row-9 kernels' em ring), and both probe entry points
 (``python -m ctc_tpu_torch.probes.fwd_ops`` and ``.expdomain_fwd``) at the
 bench shape, each in a process of its own.  Prints one JSON line per
 phase; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -133,6 +134,10 @@ FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 # multiple of 8 (L_PAD 24) and B not a multiple of the kernels' 8-wide tile
 PROBE_SHAPE = BENCH_SHAPE
 PROBE_EDGE = (37, 100, 21)
+# row 9's em ring at its edges: fewer steps than ring slots, 21 samples
+# (lanes masked, rows not 16-byte aligned) and L_PAD 1504, where only a
+# two-slot ring fits beside the carry; the carry-only variant runs chunk 3
+PROBE_RING_EDGE = (3, 21, 1500)
 PROBE_CHUNK = 16
 PROBE_ITERS = 20  # per timed run of the entry points
 # each kernel repeats its plain version's f32 operations in order (expf,
@@ -1359,12 +1364,19 @@ def phase_times_seq(card, name):
     return result
 
 
+def probe_chunk(steps):
+    """The carry-only variant's chunk: ``PROBE_CHUNK``, or all of T where
+    T is shorter."""
+    return min(PROBE_CHUNK, steps)
+
+
 def probe_cases(shape, device):
     """The ten probe kernels at ``shape`` (T, B, L) on their entry points'
     inputs: name -> (kernel, plain, profiler symbol, bytes, operations,
     domain, library call or None, what the library call is or why there is
     none).  Off the bench shape three samples are outside everywhere, and
-    the carry-only variant runs T cut to a multiple of the chunk."""
+    the carry-only variant runs T cut to a multiple of its chunk
+    (``probe_chunk``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1378,7 +1390,8 @@ def probe_cases(shape, device):
     ex, outside = expdomain_fwd.make_inputs(T, B, L, device)
     if shape != PROBE_SHAPE:
         outside[:, :3] = 1.0
-    t_cut = T - T % PROBE_CHUNK
+    chunk = probe_chunk(T)
+    t_cut = T - T % chunk
     em_cut = em[:t_cut]
     cells = T * l_pad * B  # the padded slab each step works on
     wide = 4 * cells  # one [T, L_PAD, B] f32 tensor
@@ -1405,11 +1418,11 @@ def probe_cases(shape, device):
             "fwd_ops_kernel", 4 * T * L * B + wide, ops * cells, "log",
             lib, what)
     cases["probe_noout"] = (
-        lambda: pc.probe_noout(em_cut, PROBE_CHUNK),
-        lambda: pc.probe_noout_plain(em_cut, PROBE_CHUNK),
+        lambda: pc.probe_noout(em_cut, chunk),
+        lambda: pc.probe_noout_plain(em_cut, chunk),
         # em in, one [L_PAD, B] carry out per chunk
         "fwd_ops_kernel",
-        4 * t_cut * L * B + 4 * (t_cut // PROBE_CHUNK) * l_pad * B,
+        4 * t_cut * L * B + 4 * (t_cut // chunk) * l_pad * B,
         9 * t_cut * l_pad * B, "log", None, no_scan)
     # em and the [L_PAD, B] mask in, [T, L_PAD, B] out
     row10_bytes = 2 * wide + 4 * l_pad * B
@@ -1433,26 +1446,29 @@ def probe_cases(shape, device):
 
 
 def phase_probes(card, name):
-    """Each probe kernel against its plain version on the card at the bench
-    and the edge shape, then its times in turns (plain, kernel, kernel,
-    plain), its device time, its bound and, for copy and add, the PyTorch
-    calls that compute the same function."""
+    """Each probe kernel against its plain version on the card at the
+    bench, the edge and the ring-edge shape, then its times in turns
+    (plain, kernel, kernel, plain), its device time, its bound, its em ring
+    depth (row 9; row 10 loads em inside the step) and, for copy and add,
+    the PyTorch calls that compute the same function."""
     import torch
 
     from ctc_tpu_torch.ops import probe_cuda as pc
 
     rate = hbm_rate(name)
     result = {}
-    for label, shape in (("bench", PROBE_SHAPE), ("edge", PROBE_EDGE)):
+    for label, shape in (("bench", PROBE_SHAPE), ("edge", PROBE_EDGE),
+                         ("ring_edge", PROBE_RING_EDGE)):
         cases, em = probe_cases(shape, "cuda")
-        if shape[0] % PROBE_CHUNK:
+        chunk = probe_chunk(shape[0])
+        if shape[0] % chunk:
             try:
-                pc.probe_noout(em, PROBE_CHUNK)
+                pc.probe_noout(em, chunk)
             except ValueError:
                 pass
             else:
                 fail(f"probe_noout took T={shape[0]}, not a multiple of "
-                     f"the chunk {PROBE_CHUNK}")
+                     f"the chunk {chunk}")
         iters = 50 if label == "bench" else 200
         for kname, (kernel, plain, symbol, nbytes, nops, domain, lib,
                     lib_what) in cases.items():
@@ -1471,21 +1487,29 @@ def phase_probes(card, name):
             k1 = time_ms(kernel, iters)
             k2 = time_ms(kernel, iters)
             p2 = time_ms(plain, 3)
+            device_ms = kernel_device_ms(kernel, symbol)
             bytes_ms = nbytes / rate * 1e3
             ops_ms = nops / FP32_PEAK * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            t_run = (shape[0] - shape[0] % chunk if kname == "probe_noout"
+                     else shape[0])
             row = {
                 "phase": "probes", "kernel": kname, "shape": label,
                 "shape_TBL": list(shape), "l_pad": pc.pad_rows(shape[2]),
-                "T_run": (shape[0] - shape[0] % PROBE_CHUNK
-                          if kname == "probe_noout" else shape[0]),
-                "chunk": PROBE_CHUNK,
+                "T_run": t_run,
+                "chunk": chunk if kname == "probe_noout" else PROBE_CHUNK,
+                "ring_depth": (None if symbol == "expdomain_kernel"
+                               else pc.ring_plan(pc.pad_rows(shape[2]))[0]),
                 "max_abs_dev": max_dev(got, want),
                 "rtol_atol": [PROBE_RTOL, atol],
                 "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                "kernel_device_ms": kernel_device_ms(kernel, symbol),
+                "kernel_device_ms": device_ms,
+                "step_us": (device_ms * 1e3 / t_run if device_ms is not None
+                            else None),
                 "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
-                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_ms": bound_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_share": (bound_ms / device_ms if device_ms else None),
                 "bytes": nbytes, "operations": nops,
                 "hbm_bytes_per_s": rate, "fp32_ops_per_s": FP32_PEAK,
                 "library_ms": lib_ms, "library_call": lib_what,

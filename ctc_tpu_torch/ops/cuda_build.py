@@ -54,12 +54,12 @@ SIGNATURES = {
                                  _P),
     },
     "fwd_probes.cu": {
-        # em, out, T, L, L_pad, B, stream
-        **{f"probe_{body}": (_P, _P, _I, _I, _I, _I, _P)
+        # em, out, T, L, L_pad, B, ring depth, shared bytes, stream
+        **{f"probe_{body}": (_P, _P, _I, _I, _I, _I, _I, _I, _P)
            for body in ("copy", "add", "roll", "lse", "lse_manual",
                         "lse_exp2")},
-        # em, out, T, L, L_pad, B, chunk, stream
-        "probe_noout": (_P, _P, _I, _I, _I, _I, _I, _P),
+        # em, out, T, L, L_pad, B, chunk, ring depth, shared bytes, stream
+        "probe_noout": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         # em, outside, out, T, L_pad, B, stream
         "probe_fwd_log": (_P, _P, _P, _I, _I, _I, _P),
         "probe_fwd_exp": (_P, _P, _P, _I, _I, _I, _P),

@@ -34,7 +34,10 @@ Row 10, em ``[T, L_PAD, B]`` and ``outside [L_PAD, B]`` (outside where >
 
 Each public function launches its kernel of ``csrc/fwd_probes.cu`` on a
 CUDA tensor and runs the plain version (``*_plain``) on a CPU tensor; it
-takes nothing else and never falls back.
+takes nothing else and never falls back.  Row 9's kernels stage em through
+a shared-memory ring whose depth :func:`ring_plan` picks from ``L_PAD``;
+they refuse, before any launch, an ``L_PAD`` whose carry and a two-slot
+ring do not fit in a block's shared memory (``L_PAD`` above 1816).
 """
 
 from __future__ import annotations
@@ -53,6 +56,12 @@ launch_counts = {**{f"probe_{body}": 0 for body in BODIES},
 
 _SOURCE = "fwd_probes.cu"
 
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+#: the em ring depths row 9's kernels are built for, deepest first
+_RING_DEPTHS = (8, 2)
+_TILE_B = 8  # samples per block (``kTileB``)
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -62,6 +71,24 @@ def reset_launch_counts() -> None:
 def pad_rows(n: int) -> int:
     """``L_PAD``: the label rows rounded up to a multiple of 8."""
     return -(-n // 8) * 8
+
+
+def ring_plan(l_pad: int) -> tuple[int, int]:
+    """``(depth, shared-memory bytes)`` of row 9's kernels at ``L_PAD``
+    rows: a ring of ``depth`` em slots and the carry's double buffer, each
+    slot ``[L_PAD, 8]`` f32.  Eight slots where they fit beside the carry
+    in ``SMEM_LIMIT`` (``L_PAD`` up to 720), else two, whose one slot in
+    flight is then 23 KB or more.  Raises ``ValueError`` where not even
+    two fit (``L_PAD`` above 1816)."""
+    slot = l_pad * _TILE_B * 4
+    fits = SMEM_LIMIT // slot - 2  # slots beside the two carry buffers
+    for depth in _RING_DEPTHS:
+        if depth <= fits:
+            return depth, (depth + 2) * slot
+    raise ValueError(
+        f"L_PAD={l_pad}: the em ring does not fit; two slots of {slot} "
+        f"bytes beside the {2 * slot}-byte carry need more than the "
+        f"{SMEM_LIMIT} bytes of shared memory a block may use")
 
 
 def _check_em(em) -> None:
@@ -215,21 +242,23 @@ def probe_body_kernel(em, kind):
     if kind not in BODIES:
         raise ValueError(f"unknown probe body {kind!r}; one of {BODIES}")
     name = f"probe_{kind}"
-    _require(name, em=em)
     steps, rows, batch = em.shape
+    ring = ring_plan(pad_rows(rows))
+    _require(name, em=em)
     out = em.new_empty((steps, pad_rows(rows), batch))
     return launch(_SOURCE, name, launch_counts, (em,), out,
-                  (steps, rows, out.shape[1], batch))
+                  (steps, rows, out.shape[1], batch, *ring))
 
 
 def probe_noout_kernel(em, chunk):
     """Launch row 9's carry-only kernel: ``[T / chunk, L_PAD, B]``."""
-    _require("probe_noout", em=em)
-    _check_chunk(chunk, em.shape[0])
     steps, rows, batch = em.shape
+    ring = ring_plan(pad_rows(rows))
+    _require("probe_noout", em=em)
+    _check_chunk(chunk, steps)
     out = em.new_empty((steps // chunk, pad_rows(rows), batch))
     return launch(_SOURCE, "probe_noout", launch_counts, (em,), out,
-                  (steps, rows, out.shape[1], batch, chunk))
+                  (steps, rows, out.shape[1], batch, chunk, *ring))
 
 
 def _expdomain_kernel(name, em, outside, *chunk):

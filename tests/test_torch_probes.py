@@ -28,9 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from ctc_tpu_torch.ops import cuda_build
 from ctc_tpu_torch.ops import lattice_cuda as lc
 from ctc_tpu_torch.ops import probe_cuda as pc
-from ctc_tpu_torch.probes import expdomain_fwd, fwd_ops
+from ctc_tpu_torch.probes import expdomain_fwd, fwd_ops, ring_sweep
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMALL = dict(T=32, B=128, L=20, L_PAD=24, TILE=128, CHUNK=8)
@@ -243,6 +244,50 @@ def test_operand_checks():
     assert pc.probe_fwd_exp_renorm(ex[:29], outside, 8).shape[0] == 29
 
 
+@pytest.mark.parametrize("L,want_depth", [
+    (157, 8),    # the bench shape: L_PAD 160, 5 KB slots
+    (21, 8),     # the edge shape: L_PAD 24
+    (720, 8),    # the widest L_PAD eight slots take beside the carry
+    (721, 2),    # L_PAD 728: seven would fit, so the plan takes two
+    (1000, 2),
+    (1500, 2),   # the ring-edge shape: L_PAD 1504
+    (1816, 2),   # the widest L_PAD a two-slot ring takes, to the byte
+])
+def test_ring_plan(L, want_depth):
+    l_pad = pc.pad_rows(L)
+    depth, smem = pc.ring_plan(l_pad)
+    assert depth == want_depth
+    # the ring and the carry's double buffer, [L_PAD, 8] f32 each slot
+    slot = l_pad * 8 * 4
+    assert smem == (depth + 2) * slot <= pc.SMEM_LIMIT == 232_448
+    # Little's law: >= ~23 KB of em in flight per SM (depth - 1 slots) at
+    # every L_PAD from the bench shape's up
+    if l_pad >= 160:
+        assert (depth - 1) * slot >= 23_000
+    if L == 1816:
+        assert smem == pc.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("l_pad", [1824, 2048, 8192])
+def test_ring_plan_refuses(l_pad):
+    # not even two slots fit beside the carry
+    with pytest.raises(ValueError, match="shared memory"):
+        pc.ring_plan(l_pad)
+
+
+def test_wide_rows_refused_before_any_launch():
+    # L_PAD 1824: the plan refuses before the operand checks and the build
+    em = torch.zeros((2, 1817, 3))
+    before = dict(pc.launch_counts)
+    for call in (lambda: pc.probe_body_kernel(em, "copy"),
+                 lambda: pc.probe_noout_kernel(em, 2)):
+        with pytest.raises(ValueError, match="does not fit"):
+            call()
+    assert pc.launch_counts == before
+    # the plain version has no such limit
+    assert pc.probe_body(em, "add").shape == (2, 1824, 3)
+
+
 @pytest.mark.parametrize("module,labels", [
     ("fwd_ops", [*pc.BODIES, fwd_ops.NOOUT]),
     ("expdomain_fwd", ["log (baseline)", "exp-domain", "exp+chunk-renorm"]),
@@ -274,6 +319,40 @@ def test_entry_points_default_to_the_card():
         fwd_ops.main(["--device", "cpu", "--shape", "20,8,5"])
 
 
+@pytest.mark.parametrize("build,old", [
+    ("rows32", "constexpr int kRingRows = 64;"),
+    ("rows80", "constexpr int kRingRows = 64;"),
+    ("rows128", "constexpr int kRingRows = 64;"),
+    ("noload", "cp_async4(slot + k * kRowStep, p);"),
+    ("nostore", "if (store) *o = v;"),
+])
+def test_ring_sweep_build_changes_one_line(build, old):
+    text = (cuda_build.CSRC / "fwd_probes.cu").read_text()
+    for same in ("rows64", "depth2"):
+        assert ring_sweep.variant_source(text, same) == text
+    lines = text.splitlines()
+    edited = ring_sweep.variant_source(text, build).splitlines()
+    changed = [(a, b) for a, b in zip(lines, edited) if a != b]
+    assert len(edited) == len(lines) and len(changed) == 1
+    line, edit = changed[0]
+    assert old in line and old not in edit
+    if build.startswith("rows"):
+        assert f"kRingRows = {build[4:]};" in edit
+    else:
+        assert edit.strip() == ""
+
+
+@pytest.mark.parametrize("build", ["rows0", "rows129", "rows", "rowsx",
+                                   "bogus"])
+def test_ring_sweep_refuses_an_unknown_build(build):
+    text = (cuda_build.CSRC / "fwd_probes.cu").read_text()
+    with pytest.raises(ValueError, match=build):
+        ring_sweep.variant_source(text, build)
+    # an edit must find its line exactly once
+    with pytest.raises(ValueError, match="not one line"):
+        ring_sweep.variant_source("", "noload")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -286,12 +365,19 @@ CARD_VARIANTS = [*pc.BODIES, "noout", "fwd_log", "fwd_exp", "fwd_exp_renorm"]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", CARD_VARIANTS)
-@pytest.mark.parametrize("shape", [(128, 1024, 157), (37, 100, 21)],
-                         ids=["bench", "edge"])
+@pytest.mark.parametrize("shape", [
+    (128, 1024, 157), (37, 100, 21),
+    # row 9's em ring (8 slots at L_PAD 160): fewer steps than slots, one
+    # more step than slots, 21 samples (lanes masked, rows of 84 bytes, not
+    # 16-byte aligned), and L_PAD 1504 and 1000, where only two fit
+    (1, 64, 157), (3, 64, 157), (9, 64, 157), (40, 21, 157), (5, 21, 1500),
+    (1, 21, 1000),
+], ids=["bench", "edge", "T1", "T3", "T9", "B21", "wide_L", "T1_wide_L"])
 def test_kernel_matches_plain_on_card(cuda_device, variant, shape):
     T, B, L = shape
+    chunk = min(16, T)
     if variant == "noout":
-        T -= T % 16  # the carry-only variant needs T % chunk == 0
+        T -= T % chunk  # the carry-only variant needs T % chunk == 0
     if variant.startswith("fwd_"):
         em, outside = expdomain_fwd.make_inputs(T, B, L, cuda_device)
         outside[:, :3] = 1.0  # three samples outside everywhere
@@ -301,7 +387,7 @@ def test_kernel_matches_plain_on_card(cuda_device, variant, shape):
         plain = getattr(pc, f"probe_{variant}_plain")
     else:
         em = fwd_ops.make_inputs(T, B, L, cuda_device)
-        args = (16,) if variant == "noout" else (variant,)
+        args = (chunk,) if variant == "noout" else (variant,)
         tol = KERNEL_LOG_TOL
         kernel = pc.probe_noout if variant == "noout" else pc.probe_body
         plain = (pc.probe_noout_plain if variant == "noout"
