@@ -21,6 +21,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -631,8 +632,8 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
         step(state, batch, gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with count_init_row_grads() as init_row_calls, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(state, batch, gen)
@@ -642,7 +643,8 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
     events = device_kernels(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:10]
-    symbol = re.compile(rf"(?<![a-z]){loss}_(forward|backward)_kernel")
+    symbol = re.compile(rf"(?<![a-z]){loss}_(shard_)?(forward|backward)"
+                        r"_kernel")
     lattice_us = sum(dev_us(e) for e in events if symbol.search(e.key))
     emit({"phase": "profile", "loss": loss, "classes": classes,
           "shape_TBL": list(shape),
@@ -652,10 +654,38 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
           "device_ms_per_step": device_ms / steps if events else None,
           "device_busy_share": device_ms / window_ms if events else None,
           "kernels_per_step": sum(e.count for e in events) / steps,
+          # the shard ops' torch-op init-row gradients (the plain path's)
+          "init_row_grads_calls_per_step": init_row_calls[0] / steps,
           "lattice_us_per_step": lattice_us / steps,
           "top_device_kernels": [
               {"name": e.key[:80], "us_per_step": dev_us(e) / steps,
                "calls_per_step": e.count / steps} for e in top]})
+
+
+@contextlib.contextmanager
+def count_init_row_grads():
+    """Count calls of both families' ``init_row_grads`` (the shard ops'
+    backward looks it up in its module at each call) while the block runs;
+    yields a one-element list holding the count."""
+    from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
+
+    calls = [0]
+    originals = {mod: mod.init_row_grads for mod in (lc, bl)}
+
+    def counting(fn):
+        def wrapped(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for mod, fn in originals.items():
+        mod.init_row_grads = counting(fn)
+    try:
+        yield calls
+    finally:
+        for mod, fn in originals.items():
+            mod.init_row_grads = fn
 
 
 def dev_us(e) -> float:
@@ -675,24 +705,40 @@ def device_kernels(prof):
             and dev_us(e) > 0]
 
 
+DEVICE_WINDOWS = 5  # profiler windows per device time; the median is kept
+
+
 def kernel_device_ms(fn, symbol, iters=20):
     """Device execution time of one launch of ``fn``'s kernel ``symbol``
     from the profiler (the CUDA-event time of back-to-back launches at a
-    small shape is the host's launch rate instead).  A window whose trace
-    holds no record of the kernel (the tracer dropped it) is taken again,
-    at most twice; None if none holds one."""
+    small shape is the host's launch rate instead): the mean launch of each
+    of ``DEVICE_WINDOWS`` windows of ``iters`` launches, as the row fields
+    ``kernel_device_ms`` (their median) and ``kernel_device_ms_min_max``.
+    A window whose trace holds no record of the kernel (the tracer dropped
+    it) is taken again, at most twice in all; None where none holds one."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    readings = []
+    for _ in range(DEVICE_WINDOWS + 2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in device_kernels(prof) if symbol in e.key]
         if ev:
-            return sum(dev_us(e) for e in ev) / sum(e.count for e in ev) / 1e3
-    return None
+            readings.append(sum(dev_us(e) for e in ev)
+                            / sum(e.count for e in ev) / 1e3)
+        if len(readings) == DEVICE_WINDOWS:
+            break
+    if not readings:
+        return {"kernel_device_ms": None, "kernel_device_ms_min_max": None,
+                "device_windows": 0}
+    return {"kernel_device_ms": statistics.median(readings),
+            "kernel_device_ms_min_max": [min(readings), max(readings)],
+            "device_windows": len(readings)}
 
 
 def time_ms(fn, iters):
@@ -753,14 +799,14 @@ def phase_times(card, name):
             k1 = time_ms(kernel, iters)
             k2 = time_ms(kernel, iters)
             p2 = time_ms(plain, max(iters // 10, 3))
-            device_ms = kernel_device_ms(kernel, symbol)
+            device = kernel_device_ms(kernel, symbol)
             bytes_ms = nbytes / rate * 1e3
             ops_ms = nops / FP32_PEAK * 1e3
             row = {
                 "phase": "times", "kernel": kname, "shape": label,
                 "shape_TBL": list(shape),
                 "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                "kernel_device_ms": device_ms,
+                **device,
                 "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -878,14 +924,14 @@ def phase_times_blank(card, name):
             k1 = time_ms(kernel, iters)
             k2 = time_ms(kernel, iters)
             p2 = time_ms(plain, max(iters // 10, 3))
-            device_ms = kernel_device_ms(kernel, symbol)
+            device = kernel_device_ms(kernel, symbol)
             bytes_ms = nbytes / rate * 1e3
             ops_ms = nops / FP32_PEAK * 1e3
             row = {
                 "phase": "times", "kernel": kname, "shape": label,
                 "shape_TBL": list(shape), "S": S, "classes": BLANK_CLASSES,
                 "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                "kernel_device_ms": device_ms,
+                **device,
                 "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -928,10 +974,15 @@ def make_shard_case(gen, family, shape, *, rows, repeats=False,
         if repeats:
             targets[:, 1::2] = targets[:, 0::2][:, : targets[:, 1::2].shape[1]]
         logits = torch.randn((t_s, B, BLANK_CLASSES), generator=gen)
-        em, skip = blank_emissions_and_skip(logits, targets, 0,
-                                            normalize=True)
+        if L:
+            em, skip = blank_emissions_and_skip(logits, targets, 0,
+                                                normalize=True)
+        else:  # the blank slot alone (S = 1), which nothing skips into
+            em = logits[:, :, :1] - torch.logsumexp(logits, 2, keepdim=True)
+            skip = torch.zeros((B, 1), dtype=torch.bool)
         skip = skip.to(torch.uint8)
-        tgt = torch.randint(0 if zero_len else 1, L + 1, (B,), generator=gen)
+        tgt = torch.randint(0 if zero_len or not L else 1, L + 1, (B,),
+                            generator=gen)
         init = bl.blank_alpha_init(B, width)
     inlen = torch.randint(-(t_s // 2), 2 * t_s + 1, (B,), generator=gen)
     inlen[0] = t_s
@@ -965,15 +1016,24 @@ def shard_fns(family, c):
         g_args = (c["skip"], c["inlen"], c["tgt"])
     rows = (c["r0"], c["r1"])
     bars = (c["d_final"], c["d_boundary"])
+    # the init rows' gradients: in the kernel's launch, torch ops after the
+    # plain recursion
+    init_tail = (c["tgt"],) if family == "noblank" else (c["skip"],)
+
+    def grad_plain(alpha):
+        g = getattr(mod, f"{family}_shard_grad_plain")(alpha, *g_args, *bars)
+        return (g, *mod.init_row_grads(g[0], *rows, *init_tail))
+
     return {
         "alpha_kernel": lambda: getattr(mod, f"{family}_shard_alpha_kernel")(
             c["em"], *head, *rows),
         "alpha_plain": lambda: getattr(mod, f"{family}_shard_alpha_plain")(
             c["em"], *head, *rows),
+        # (g, d init row 0, d init row 1)
         "grad_kernel": lambda alpha: getattr(
-            mod, f"{family}_shard_grad_kernel")(alpha, *g_args, *bars),
-        "grad_plain": lambda alpha: getattr(
-            mod, f"{family}_shard_grad_plain")(alpha, *g_args, *bars),
+            mod, f"{family}_shard_grad_kernel")(alpha, *g_args, *bars,
+                                                *rows),
+        "grad_plain": grad_plain,
         "op_kernel": getattr(mod, f"{family}_shard_lattice_cuda"),
         "op_plain": getattr(mod, f"{family}_shard_lattice_plain"),
         "final": mod.gather_final,
@@ -1049,6 +1109,11 @@ def phase_parity_seq():
         T, B, L, M = SEQ_MAIN[family]
         lT, lB, lL, lM = SEQ_LONG[family]
         main_shard = (T // SEQ_SHARDS, B // M, L)
+        # the shard backward's edges: T not a multiple of its 16-row alpha
+        # chunk, T below it, the width where its plan drops to 4-row chunks
+        # (noblank W 819, blank S 659, also wider than the 512-thread block),
+        # and W = 1 (blank: L = 0)
+        boundary_l = 819 if family == "noblank" else 329
         cases = [
             ("main_path", main_shard, dict(rows="random")),
             ("main_path_shard0", main_shard, dict(rows="shard0")),
@@ -1056,6 +1121,11 @@ def phase_parity_seq():
             ("edges", (6, 16, 5), dict(rows="random", repeats=True,
                                        zero_len=True)),
             ("L1", (5, 4, 1), dict(rows="random")),
+            ("T37", (37, 16, 12), dict(rows="random")),
+            ("T3", (3, 16, 5), dict(rows="random")),
+            ("plan_boundary", (6, 4, boundary_l), dict(rows="random")),
+            ("W1", (5, 4, 1 if family == "noblank" else 0),
+             dict(rows="random")),
         ]
         for label, shape, flags in cases:
             c = make_shard_case(gen, family, shape, **flags)
@@ -1079,7 +1149,9 @@ def phase_parity_seq():
                         LOSS_ATOL)
             check_close(f"{tag} alpha", alpha_k[reach], alpha_p[reach],
                         LOSS_RTOL, LOSS_ATOL)
-            check_close(f"{tag} grad", g_k, g_p, GRAD_RTOL, GRAD_ATOL)
+            for name, gk, gp in zip(("grad", "d init_row_0", "d init_row_1"),
+                                    g_k, g_p):
+                check_close(f"{tag} {name}", gk, gp, GRAD_RTOL, GRAD_ATOL)
             op_dev = {}
             for name, gk, gp in zip(("em", "init_row_0", "init_row_1"),
                                     grads["op_kernel"], grads["op_plain"]):
@@ -1092,7 +1164,9 @@ def phase_parity_seq():
                    "final_max_abs_dev": max_dev(final_k, final_p),
                    "alpha_reachable_max_abs_dev": max_dev(alpha_k[reach],
                                                           alpha_p[reach]),
-                   "grad_max_abs_dev": max_dev(g_k, g_p),
+                   "grad_max_abs_dev": max_dev(g_k[0], g_p[0]),
+                   "init_row_grad_max_abs_dev": [max_dev(g_k[1], g_p[1]),
+                                                 max_dev(g_k[2], g_p[2])],
                    "autograd_grad_max_abs_dev": op_dev,
                    "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL],
                    "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL]}
@@ -1162,10 +1236,14 @@ def phase_main_path_seq(work):
         cache = os.path.join(work, f"seq_{family}")
         reset_counts()
         t0 = time.perf_counter()
-        history = main(args + ["--cache-dir", cache])
+        with count_init_row_grads() as init_row_calls:
+            history = main(args + ["--cache-dir", cache])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = read_counts()
+        if init_row_calls[0]:
+            fail(f"seq {family}: init_row_grads ran {init_row_calls[0]} "
+                 f"times on the kernel path")
         epochs = len(history)
         train_steps, eval_steps = 8 * epochs, 2 * epochs  # the loader
         per_step = SEQ_SHARDS * SEQ_MAIN[family][3]
@@ -1181,6 +1259,7 @@ def phase_main_path_seq(work):
         emit({"phase": "main_path_seq", "loss": family, "argv": args,
               "seconds": seconds, "train_steps": train_steps,
               "eval_steps": eval_steps, "launches": got,
+              "init_row_grads_calls": init_row_calls[0],
               "train_loss_by_epoch": train_losses,
               "val_loss_by_epoch": [h["val"]["loss"] for h in history],
               "step_s_host_avg": [h["train"]["time"] for h in history]})
@@ -1284,21 +1363,23 @@ def phase_times_seq(card, name):
             cells, row = t_s * mb * width, mb * width
             if family == "noblank":
                 # em in, alpha out, two init rows and target lengths in;
-                # alpha in, g out, g_seed and three [B] vectors in
+                # alpha in, g out, g_seed, two init rows and three [B]
+                # vectors in, two init-row gradients out
                 fwd_bytes = 8 * cells + 8 * row + 4 * mb
-                bwd_bytes = 8 * cells + 4 * row + 12 * mb
-                fwd_ops, bwd_ops = 8 * cells, 17 * cells  # as rows 1-2
+                bwd_bytes = 8 * cells + 20 * row + 12 * mb
+                # as rows 1-2, the init row as one more row of cells
+                fwd_ops, bwd_ops = 8 * cells, 17 * (cells + row)
             else:
                 # as above plus the [B, S] byte mask in each
                 fwd_bytes = 8 * cells + 9 * row
-                bwd_bytes = 8 * cells + 5 * row + 12 * mb
-                fwd_ops, bwd_ops = 14 * cells, 49 * cells  # as rows 5-6
+                bwd_bytes = 8 * cells + 21 * row + 12 * mb
+                fwd_ops, bwd_ops = 14 * cells, 49 * (cells + row)
             fns = {
                 f"{family}_shard_forward": (
                     f"{family}_forward_kernel", f["alpha_kernel"],
                     f["alpha_plain"], fwd_bytes, fwd_ops),
                 f"{family}_shard_backward": (
-                    f"{family}_backward_kernel",
+                    f"{family}_shard_backward_kernel",
                     lambda: f["grad_kernel"](alpha),
                     lambda: f["grad_plain"](alpha), bwd_bytes, bwd_ops),
             }
@@ -1308,7 +1389,8 @@ def phase_times_seq(card, name):
                 k1 = time_ms(kernel, iters)
                 k2 = time_ms(kernel, iters)
                 p2 = time_ms(plain, 3)
-                device_ms = kernel_device_ms(kernel, symbol)
+                device = kernel_device_ms(kernel, symbol)
+                device_ms = device["kernel_device_ms"]
                 bytes_ms = nbytes / rate * 1e3
                 ops_ms = nops / FP32_PEAK * 1e3
                 row_out = {
@@ -1316,7 +1398,10 @@ def phase_times_seq(card, name):
                     "shard_shape_TBW": [t_s, mb, width],
                     "global_shape_TBLM": list(shape),
                     "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                    "kernel_device_ms": device_ms,
+                    **device,
+                    # one dependent step of the recursion
+                    "step_us": (device_ms * 1e3 / t_s
+                                if device_ms is not None else None),
                     "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": ("bytes" if bytes_ms >= ops_ms
@@ -1487,7 +1572,8 @@ def phase_probes(card, name):
             k1 = time_ms(kernel, iters)
             k2 = time_ms(kernel, iters)
             p2 = time_ms(plain, 3)
-            device_ms = kernel_device_ms(kernel, symbol)
+            device = kernel_device_ms(kernel, symbol)
+            device_ms = device["kernel_device_ms"]
             bytes_ms = nbytes / rate * 1e3
             ops_ms = nops / FP32_PEAK * 1e3
             bound_ms = max(bytes_ms, ops_ms)
@@ -1503,7 +1589,7 @@ def phase_probes(card, name):
                 "max_abs_dev": max_dev(got, want),
                 "rtol_atol": [PROBE_RTOL, atol],
                 "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-                "kernel_device_ms": device_ms,
+                **device,
                 "step_us": (device_ms * 1e3 / t_run if device_ms is not None
                             else None),
                 "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],

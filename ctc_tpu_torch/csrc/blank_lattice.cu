@@ -33,16 +33,47 @@
 // weights are exp(source - lse) with every masked source at the sentinel,
 // exactly as the XLA scan's autodiff and the Pallas kernel compute them.
 //
-// The shard kernels are the same loops with the lattice's two boundaries
-// handed in (kShard = true): the carry starts from the row init0[b], the
-// skip source of local t = 0 is the row skip0[b] (the carry at every later
-// step), the backward adds the cotangent of the outgoing boundary row,
-// g_seed[b], at the last local row, and the final cells are injected with
-// +bar times their softmax (the op returns the final log-prob).  On shard 0
-// the pipeline passes the virtual alpha(-1) row as init0 and the
-// all-sentinel row as skip0, which reproduces the t = 0 skip gate exactly.
+// The shard forward is the same loop with the lattice's two boundaries
+// handed in (kShard = true): the carry starts from the row init0[b], and
+// the skip source of local t = 0 is the row skip0[b] (the carry at every
+// later step).  On shard 0 the pipeline passes the virtual alpha(-1) row
+// as init0 and the all-sentinel row as skip0, which reproduces the t = 0
+// skip gate exactly.
+//
+// The shard backward (blank_shard_backward_kernel) adds the cotangent of
+// the outgoing boundary row, g_seed[b], at the last local row, injects the
+// final cells with +bar times their softmax (the op returns the final
+// log-prob), and also returns the init rows' gradients.  It has the design
+// of noblank_lattice.cu's shard backward, for the same reason: T dependent
+// steps bind it, not bytes (15.0 us and 0.912 ms of device time at [16,
+// 64, 65] and [1024, 4, 49] against bounds of 0.19 and 0.48 us, NVIDIA H100
+// 80GB HBM3, 700.00 W; python -m ctc_tpu_torch.probes.shard_ab, the kernel
+// before this design), and here each step of the whole-lattice loop
+// loaded alpha at s-2 .. s+2 and ran three three-way log-adds and three
+// expf (about 15 transcendentals a cell) before its multiply-adds.  So:
+//   - alpha is staged by cp.async in chunks of kChunk rows walking T down,
+//     two buffers; the __syncthreads after each chunk's wait publishes the
+//     chunk to the block (weights read neighbouring slots).
+//   - the three branch weights into each slot (stay, advance from s-1,
+//     skip from s-2: exp(source - lse), masked sources at the sentinel)
+//     are computed once per slot for all the chunk's rows, 2 log1pf and 5
+//     expf a slot, by the whole 512-thread block into shared memory, then
+//     one barrier; a step reads g at s, s+1, s+2 and three weights and
+//     does the multiply-adds only, then one __syncthreads.
+//   - the init rows' gradients (ops/blank_lattice_cuda.py::init_row_grads)
+//     are row -1: its weights read stay and advance off init0[b] and skip
+//     off skip0[b]; d_init0 / d_skip0 come from g[0] after the last
+//     barrier.
+// Measured (same card and script): 7.49 us at [16, 64, 65] (15.04 before)
+// and 0.3086 ms at [1024, 4, 49] (0.9075 before); a step costs ~0.30 us
+// at long T.
+// The plan (ops/lattice_cuda.py::shard_backward_plan) takes kChunk 16 up to
+// S = 658, 4 up to 2057, 1 up to 4385 (which covers S = 4097, L = 2048),
+// and refuses wider rows before any launch.
 
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -57,6 +88,35 @@ __device__ __forceinline__ float logaddexp3(float stay, float adv,
                                             float skip) {
   return logaddexp(logaddexp(stay, adv), skip);
 }
+
+// The final-cell injection of one sample: bar times the softmax of alpha's
+// two final cells at row t_inject (indices clamped into the lattice), on
+// s = 2 tgt and (tgt > 0) s = 2 tgt - 1.  Every thread reads the same two
+// cells.
+struct FinalInject {
+  int s_a, s_b;
+  bool has_label;
+  float inj_a, inj_b;
+
+  __device__ FinalInject(const float* alpha_b, size_t row_stride, int T,
+                         int S, int t_inject, int tgt_b, float bar) {
+    const int t_f = min(max(t_inject, 0), T - 1);
+    s_a = min(max(2 * tgt_b, 0), S - 1);
+    s_b = min(max(2 * tgt_b - 1, 0), S - 1);
+    has_label = tgt_b > 0;
+    const float* alpha_f = alpha_b + static_cast<size_t>(t_f) * row_stride;
+    const float a_a = alpha_f[s_a];
+    const float a_b = alpha_f[s_b];
+    const float lse_f = has_label ? logaddexp(a_a, a_b) : a_a;
+    inj_a = bar * expf(a_a - lse_f);
+    inj_b = has_label ? bar * expf(a_b - lse_f) : 0.0f;
+  }
+
+  __device__ float at(int s) const {
+    return ((s == s_a) ? inj_a : 0.0f) +
+           ((has_label && s == s_b) ? inj_b : 0.0f);
+  }
+};
 
 // alpha[t, b, s] = em[t, b, s] + logaddexp3(alpha[t-1, b, s],
 //     alpha[t-1, b, s-1], skip_ok[b, s] && t > 0 ? alpha[t-1, b, s-2] : NEG)
@@ -119,16 +179,11 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
 // inject = -nll_bar[b] * softmax(final two cells) at t = inlen[b] - 1, on
 // s = 2 tgt[b] and (tgt[b] > 0) s = 2 tgt[b] - 1.  g is zero above the last
 // row, so every row at or past inlen[b] comes out exactly 0.
-// kShard: the inject is +bar[b] times the softmax (inlen is shard-local, so a
-// shard that does not own the final cells injects nothing), and g_seed[b]
-// is added at t = T-1.
-template <bool kShard>
 __global__ void blank_backward_kernel(const float* __restrict__ alpha,
                                       const unsigned char* __restrict__ skip,
                                       const int* __restrict__ inlen,
                                       const int* __restrict__ tgt,
                                       const float* __restrict__ nll_bar,
-                                      const float* __restrict__ g_seed,
                                       float* __restrict__ g, int T, int B,
                                       int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
@@ -136,22 +191,12 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int t_inject = inlen[b] - 1;
-  const float bar = kShard ? nll_bar[b] : -nll_bar[b];
-  const size_t row_stride = static_cast<size_t>(B) * S;
   const float* alpha_b = alpha + static_cast<size_t>(b) * S;
+  const size_t row_stride = static_cast<size_t>(B) * S;
   float* g_b = g + static_cast<size_t>(b) * S;
   const unsigned char* skip_b = skip + static_cast<size_t>(b) * S;
-
-  // the final-cell injection; every thread reads the same two cells
-  const int t_f = min(max(t_inject, 0), T - 1);
-  const int s_a = min(max(2 * tgt_b, 0), S - 1);
-  const int s_b = min(max(2 * tgt_b - 1, 0), S - 1);
-  const float* alpha_f = alpha_b + static_cast<size_t>(t_f) * row_stride;
-  const float a_a = alpha_f[s_a];
-  const float a_b = alpha_f[s_b];
-  const float lse_f = (tgt_b > 0) ? logaddexp(a_a, a_b) : a_a;
-  const float inj_a = bar * expf(a_a - lse_f);
-  const float inj_b = (tgt_b > 0) ? bar * expf(a_b - lse_f) : 0.0f;
+  const FinalInject fin(alpha_b, row_stride, T, S, t_inject, tgt_b,
+                        -nll_bar[b]);
 
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
     rows[s] = 0.0f;
@@ -165,14 +210,7 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
     const float* alpha_t = alpha_b + static_cast<size_t>(t) * row_stride;
     float* g_t = g_b + static_cast<size_t>(t) * row_stride;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float inject = 0.0f;
-      if (t == t_inject) {
-        inject = ((s == s_a) ? inj_a : 0.0f) +
-                 ((tgt_b > 0 && s == s_b) ? inj_b : 0.0f);
-      }
-      if constexpr (kShard) {
-        if (t == T - 1) inject += g_seed[static_cast<size_t>(b) * S + s];
-      }
+      const float inject = (t == t_inject) ? fin.at(s) : 0.0f;
       float prop = 0.0f;
       if (t < T - 1) {
         const float a_0 = alpha_t[s];
@@ -209,6 +247,177 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
   }
 }
 
+// Shared memory of the shard backward, in floats per slot s: two staged
+// alpha chunks, the chunk's three weight rows per alpha row, the carried g
+// double buffer, the g_seed row, the two init rows and their three weight
+// rows; then one skip byte per slot.
+__host__ __device__ constexpr int shard_floats_per_cell(int chunk) {
+  return 2 * chunk + 3 * chunk + 2 + 1 + 2 + 3;
+}
+
+// The three branch weights into slot s of one step, read off the row the
+// step leaves: stay and advance sources from `row`, the skip source from
+// `skip_row` (the row itself, or skip0 for the init row), the sentinel
+// where a source does not exist or skip_ok forbids it.
+//   w[0][s] = exp(row[s] - lse),  w[1][s] = exp(row[s-1] - lse),
+//   w[2][s] = exp(skip source - lse),  lse = logaddexp3 of the three.
+__device__ __forceinline__ void branch_weights(const float* row,
+                                               const float* skip_row,
+                                               const unsigned char* skip_sh,
+                                               int s, int S, float* w) {
+  const float a_0 = row[s];
+  const float a_m1 = (s >= 1) ? row[s - 1] : kNeg;
+  const float a_skip = (s >= 2 && skip_sh[s]) ? skip_row[s - 2] : kNeg;
+  const float lse = logaddexp3(a_0, a_m1, a_skip);
+  w[s] = expf(a_0 - lse);
+  w[S + s] = expf(a_m1 - lse);
+  w[2 * S + s] = expf(a_skip - lse);
+}
+
+// One T-shard's reverse recursion (the recursion above with the shard's
+// boundaries: the inject is +bar[b] times the softmax, g_seed[b] is added
+// at t = T-1), and the gradients of both init rows, in one launch:
+//   d_init0[b, s] = g[0, s] * w_stay(-1, s) + g[0, s+1] * w_adv(-1, s+1)
+//   d_skip0[b, s] = g[0, s+2] * w_skip(-1, s+2)
+// (terms past S-1 are 0) where row -1's weights read stay and advance off
+// init0[b] and skip off skip0[b], exactly as init_row_grads does.
+//
+// alpha walks down T in chunks of kChunk rows, staged into shared memory
+// by cp.async one chunk ahead (two buffers); each chunk's weights are
+// computed from the staged rows before its steps, so a step reads g_next
+// and three weights from shared memory and does the multiply-adds only.
+template <int kChunk>
+__global__ void __launch_bounds__(512)
+    blank_shard_backward_kernel(const float* __restrict__ alpha,
+                                const unsigned char* __restrict__ skip,
+                                const int* __restrict__ inlen,
+                                const int* __restrict__ tgt,
+                                const float* __restrict__ bar,
+                                const float* __restrict__ g_seed,
+                                const float* __restrict__ init0,
+                                const float* __restrict__ skip0,
+                                float* __restrict__ g,
+                                float* __restrict__ d_init0,
+                                float* __restrict__ d_skip0, int T, int B,
+                                int S) {
+  extern __shared__ float smem[];
+  float* chunks = smem;                      // [2][kChunk][S] alpha
+  float* weights = chunks + 2 * kChunk * S;  // [kChunk][3][S]
+  float* rows = weights + 3 * kChunk * S;    // [2][S] carried g
+  float* seed = rows + 2 * S;                // [S] g_seed[b]
+  float* init = seed + S;                    // [2][S] init0[b], skip0[b]
+  float* init_w = init + 2 * S;              // [3][S] row -1's weights
+  unsigned char* skip_sh =                   // [S] skip_ok[b]
+      reinterpret_cast<unsigned char*>(init_w + 3 * S);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int t_inject = inlen[b] - 1;
+  const size_t row_stride = static_cast<size_t>(B) * S;
+  const size_t b_off = static_cast<size_t>(b) * S;
+  const float* alpha_b = alpha + b_off;
+  float* g_b = g + b_off;
+  const int n_chunks = (T + kChunk - 1) / kChunk;
+
+  // Copies and weights spread a chunk's cells over the whole block: where a
+  // row is narrower than the block, nt / S rows side by side (threads past
+  // the last full row idle), else one row at a time, strided.
+  const bool side_by_side = nt >= S;
+  const int row_step = side_by_side ? nt / S : 1;
+  const int first_row =
+      side_by_side ? (tid < row_step * S ? tid / S : kChunk) : 0;
+  const int first_cell = side_by_side ? tid % S : tid;
+  const int cell_step = side_by_side ? S : nt;
+
+  // chunk c holds rows [lo, hi], hi = T-1 - c*kChunk
+  auto chunk_lo = [&](int c) { return max(T - (c + 1) * kChunk, 0); };
+  auto stage = [&](int c) {  // chunk c -> its buffer, as one group
+    if (c < n_chunks) {
+      const int lo = chunk_lo(c);
+      const int n = T - c * kChunk - lo;
+      float* dst = chunks + (c & 1) * kChunk * S;
+      for (int k = first_row; k < n; k += row_step) {
+        const float* src = alpha_b + static_cast<size_t>(lo + k) * row_stride;
+        for (int s = first_cell; s < S; s += cell_step) {
+          cp_async::copy4(dst + k * S + s, src + s);
+        }
+      }
+    }
+    cp_async::commit();
+  };
+
+  // group 0: the seed and init rows with chunk 0; group 1: chunk 1
+  for (int s = tid; s < S; s += nt) {
+    cp_async::copy4(seed + s, g_seed + b_off + s);
+    cp_async::copy4(init + s, init0 + b_off + s);
+    cp_async::copy4(init + S + s, skip0 + b_off + s);
+    skip_sh[s] = skip[b_off + s];
+  }
+  stage(0);
+  stage(1);
+  // the final-cell injection, read from device memory while chunk 0 flies
+  const FinalInject fin(alpha_b, row_stride, T, S, t_inject, tgt[b], bar[b]);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int lo = chunk_lo(c);
+    const int n = T - c * kChunk - lo;
+    const float* a = chunks + (c & 1) * kChunk * S;
+    cp_async::wait<1>();  // this thread's copies of chunk c have landed
+    // This barrier publishes chunk c (and, at c = 0, the seed, init and
+    // skip rows): each weight reads its neighbours' cells, copied by other
+    // threads.  It also orders this chunk's weight writes after the last
+    // step of chunk c-1 read the weights.
+    __syncthreads();
+    for (int k = first_row; k < n; k += row_step) {
+      for (int s = first_cell; s < S; s += cell_step) {
+        branch_weights(a + k * S, a + k * S, skip_sh, s, S,
+                       weights + 3 * k * S);
+      }
+    }
+    if (c == 0) {
+      for (int s = tid; s < S; s += nt) {
+        branch_weights(init, init + S, skip_sh, s, S, init_w);
+      }
+    }
+    // publishes the weights; every read of chunk c's buffer is done
+    __syncthreads();
+    stage(c + 2);  // into the buffer chunk c leaves
+    for (int k = n - 1; k >= 0; --k) {
+      const int t = lo + k;
+      const int step = T - 1 - t;
+      const float* g_next = rows + (step & 1) * S;
+      float* g_cur = rows + ((step + 1) & 1) * S;
+      const float* w = weights + 3 * k * S;
+      float* g_t = g_b + static_cast<size_t>(t) * row_stride;
+      for (int s = tid; s < S; s += nt) {
+        float inject = (t == t_inject) ? fin.at(s) : 0.0f;
+        if (t == T - 1) inject += seed[s];
+        float prop = 0.0f;
+        if (t < T - 1) {
+          const float stay = g_next[s] * w[s];
+          const float from_adv =
+              (s + 1 < S) ? g_next[s + 1] * w[S + s + 1] : 0.0f;
+          const float from_skip =
+              (s + 2 < S) ? g_next[s + 2] * w[2 * S + s + 2] : 0.0f;
+          prop = (stay + from_adv) + from_skip;
+        }
+        const float v = inject + prop;
+        g_t[s] = v;
+        g_cur[s] = v;
+      }
+      __syncthreads();
+    }
+  }
+  // g[0], the row the last step wrote, published by that step's barrier
+  const float* g0 = rows + (T & 1) * S;
+  for (int s = tid; s < S; s += nt) {
+    const float from_adv =
+        (s + 1 < S) ? g0[s + 1] * init_w[S + s + 1] : 0.0f;
+    d_init0[b_off + s] = g0[s] * init_w[s] + from_adv;
+    d_skip0[b_off + s] = (s + 2 < S) ? g0[s + 2] * init_w[2 * S + s + 2]
+                                     : 0.0f;
+  }
+}
+
 int block_threads(int S) {
   int threads = ((S + 31) / 32) * 32;
   return threads > 1024 ? 1024 : threads;
@@ -242,19 +451,67 @@ cudaError_t launch_forward(const float* em, const unsigned char* skip,
   return cudaGetLastError();
 }
 
-template <bool kShard>
 cudaError_t launch_backward(const float* alpha, const unsigned char* skip,
                             const int* inlen, const int* tgt,
-                            const float* bar, const float* g_seed, float* g,
-                            int T, int B, int S, cudaStream_t stream) {
+                            const float* bar, float* g, int T, int B, int S,
+                            cudaStream_t stream) {
   if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
   const size_t smem = shared_bytes(S);
   cudaError_t err = prepare(
-      reinterpret_cast<const void*>(blank_backward_kernel<kShard>), smem);
+      reinterpret_cast<const void*>(blank_backward_kernel), smem);
   if (err != cudaSuccess) return err;
-  blank_backward_kernel<kShard><<<B, block_threads(S), smem, stream>>>(
-      alpha, skip, inlen, tgt, bar, g_seed, g, T, B, S);
+  blank_backward_kernel<<<B, block_threads(S), smem, stream>>>(
+      alpha, skip, inlen, tgt, bar, g, T, B, S);
   return cudaGetLastError();
+}
+
+template <int kChunk>
+cudaError_t launch_shard_backward_chunk(
+    const float* alpha, const unsigned char* skip, const int* inlen,
+    const int* tgt, const float* bar, const float* g_seed, const float* init0,
+    const float* skip0, float* g, float* d_init0, float* d_skip0, int T,
+    int B, int S, int threads, size_t smem, cudaStream_t stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(blank_shard_backward_kernel<kChunk>);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  blank_shard_backward_kernel<kChunk><<<B, threads, smem, stream>>>(
+      alpha, skip, inlen, tgt, bar, g_seed, init0, skip0, g, d_init0,
+      d_skip0, T, B, S);
+  return cudaGetLastError();
+}
+
+// The plan (chunk, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::shard_backward_plan); a chunk the kernel is not
+// built for, or shared bytes that do not match its layout, are refused.
+cudaError_t launch_shard_backward(
+    const float* alpha, const unsigned char* skip, const int* inlen,
+    const int* tgt, const float* bar, const float* g_seed, const float* init0,
+    const float* skip0, float* g, float* d_init0, float* d_skip0, int T,
+    int B, int S, int chunk, int threads, int smem, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
+  const size_t bytes = static_cast<size_t>(smem);
+  if (threads < 32 || threads > 512 || threads % 32 != 0 ||
+      bytes != static_cast<size_t>(S) *
+                   (sizeof(float) * shard_floats_per_cell(chunk) + 1)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (chunk) {
+    case 16:
+      return launch_shard_backward_chunk<16>(
+          alpha, skip, inlen, tgt, bar, g_seed, init0, skip0, g, d_init0,
+          d_skip0, T, B, S, threads, bytes, stream);
+    case 4:
+      return launch_shard_backward_chunk<4>(
+          alpha, skip, inlen, tgt, bar, g_seed, init0, skip0, g, d_init0,
+          d_skip0, T, B, S, threads, bytes, stream);
+    case 1:
+      return launch_shard_backward_chunk<1>(
+          alpha, skip, inlen, tgt, bar, g_seed, init0, skip0, g, d_init0,
+          d_skip0, T, B, S, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -273,8 +530,8 @@ cudaError_t blank_lattice_backward(const float* alpha,
                                    const int* tgt, const float* nll_bar,
                                    float* g, int T, int B, int S,
                                    cudaStream_t stream) {
-  return launch_backward<false>(alpha, skip, inlen, tgt, nll_bar, nullptr, g,
-                                T, B, S, stream);
+  return launch_backward(alpha, skip, inlen, tgt, nll_bar, g, T, B, S,
+                         stream);
 }
 
 // One T-shard: init0 / skip0 are [B, S] init rows.
@@ -286,14 +543,19 @@ cudaError_t blank_shard_forward(const float* em, const unsigned char* skip,
 }
 
 // One T-shard: inlen is shard-local, final_bar the cotangent of the final
-// log-prob, g_seed [B, S] that of the outgoing boundary row.
+// log-prob, g_seed [B, S] that of the outgoing boundary row, init0 / skip0
+// the [B, S] init rows; writes g and the init rows' gradients d_init0 /
+// d_skip0 [B, S].  chunk, threads and smem are the wrapper's plan.
 cudaError_t blank_shard_backward(const float* alpha, const unsigned char* skip,
                                  const int* inlen, const int* tgt,
                                  const float* final_bar, const float* g_seed,
-                                 float* g, int T, int B, int S,
-                                 cudaStream_t stream) {
-  return launch_backward<true>(alpha, skip, inlen, tgt, final_bar, g_seed, g,
-                               T, B, S, stream);
+                                 const float* init0, const float* skip0,
+                                 float* g, float* d_init0, float* d_skip0,
+                                 int T, int B, int S, int chunk, int threads,
+                                 int smem, cudaStream_t stream) {
+  return launch_shard_backward(alpha, skip, inlen, tgt, final_bar, g_seed,
+                               init0, skip0, g, d_init0, d_skip0, T, B, S,
+                               chunk, threads, smem, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,37 @@
+// Asynchronous 4-byte copies from device memory into shared memory
+// (cp.async, sm_80 and later), for kernels that stage an operand ahead of
+// the steps that read it.  A thread's copies are committed as groups; a
+// wait returns once at most kPending of that thread's groups are still in
+// flight.  The copies a thread waited for are visible to that thread only:
+// a block that reads another thread's copies needs a barrier after the wait.
+
+#ifndef CTC_TPU_TORCH_CP_ASYNC_CUH_
+#define CTC_TPU_TORCH_CP_ASYNC_CUH_
+
+#include <cuda_runtime.h>
+
+namespace cp_async {
+
+// One 4-byte asynchronous copy, device memory -> shared memory.
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned dst_s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst_s),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's uncommitted copies into one group.
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are still
+// in flight.
+template <int kPending>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+}  // namespace cp_async
+
+#endif  // CTC_TPU_TORCH_CP_ASYNC_CUH_

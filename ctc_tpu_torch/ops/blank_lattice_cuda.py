@@ -43,6 +43,7 @@ from ctc_tpu_torch.ops.lattice_cuda import (
     _require,
     _to_tbl,
     launch,
+    shard_backward_plan,
     validate_rows,
 )
 from ctc_tpu_torch.ops.logspace import BLANK_NEG
@@ -245,15 +246,21 @@ def blank_shard_alpha_kernel(em, skip_ok, init0, skip0):
 
 
 def blank_shard_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
-                            final_bar, g_seed):
-    """Launch the shard backward kernel: g ``[t_s, B, S]`` from alpha, the
-    final log-prob's cotangent and the boundary row's ``g_seed``."""
+                            final_bar, g_seed, init0, skip0):
+    """Launch the shard backward kernel: ``(g [t_s, B, S], d init0 [B, S],
+    d skip0 [B, S])`` from alpha, the final log-prob's cotangent, the
+    boundary row's ``g_seed`` and the init rows (the plain path's
+    :func:`blank_shard_grad_plain` and :func:`init_row_grads` in one
+    launch)."""
+    plan = shard_backward_plan(alpha.shape[2], weights=3, mask_bytes=1)
     _require("blank_shard_backward", alpha=alpha, skip_ok=skip_ok,
              input_lengths=input_lengths, target_lengths=target_lengths,
-             final_bar=final_bar, g_seed=g_seed)
+             final_bar=final_bar, g_seed=g_seed, init0=init0, skip0=skip0)
     return launch(_SOURCE, "blank_shard_backward", launch_counts,
                   (alpha, skip_ok, input_lengths, target_lengths, final_bar,
-                   g_seed), torch.empty_like(alpha), alpha.shape)
+                   g_seed, init0, skip0),
+                  (torch.empty_like(alpha), torch.empty_like(init0),
+                   torch.empty_like(skip0)), (*alpha.shape, *plan))
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +372,13 @@ class BlankShardLattice(torch.autograd.Function):
     def backward(ctx, final_bar, boundary_bar):
         (alpha, init0, skip0, skip_ok, input_lengths,
          target_lengths) = ctx.saved_tensors
-        grad = (blank_shard_grad_kernel if ctx.use_kernel
-                else blank_shard_grad_plain)
-        g = grad(alpha, skip_ok, input_lengths, target_lengths,
-                 final_bar.contiguous(), boundary_bar.contiguous())
-        d_init0, d_skip0 = init_row_grads(g[0], init0, skip0, skip_ok)
+        args = (alpha, skip_ok, input_lengths, target_lengths,
+                final_bar.contiguous(), boundary_bar.contiguous())
+        if ctx.use_kernel:
+            g, d_init0, d_skip0 = blank_shard_grad_kernel(*args, init0, skip0)
+        else:
+            g = blank_shard_grad_plain(*args)
+            d_init0, d_skip0 = init_row_grads(g[0], init0, skip0, skip_ok)
         return g, d_init0, d_skip0, None, None, None, None
 
 

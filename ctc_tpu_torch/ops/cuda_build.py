@@ -39,8 +39,9 @@ SIGNATURES = {
         "noblank_lattice_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
         # em, tgt, stay0, adv0, alpha, T, B, L, stream
         "noblank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-        # alpha, inlen, tgt, final_bar, g_seed, g, T, B, L, stream
-        "noblank_shard_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # alpha, inlen, tgt, final_bar, g_seed, stay0, adv0, g, d_stay0,
+        # d_adv0, T, B, L, chunk, threads, shared bytes, stream
+        "noblank_shard_backward": (*(_P,) * 10, *(_I,) * 6, _P),
     },
     "blank_lattice.cu": {
         # em, skip_ok, alpha, T, B, S, stream
@@ -49,9 +50,9 @@ SIGNATURES = {
         "blank_lattice_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
         # em, skip_ok, init0, skip0, alpha, T, B, S, stream
         "blank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-        # alpha, skip_ok, inlen, tgt, final_bar, g_seed, g, T, B, S, stream
-        "blank_shard_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _P),
+        # alpha, skip_ok, inlen, tgt, final_bar, g_seed, init0, skip0, g,
+        # d_init0, d_skip0, T, B, S, chunk, threads, shared bytes, stream
+        "blank_shard_backward": (*(_P,) * 11, *(_I,) * 6, _P),
     },
     "fwd_probes.cu": {
         # em, out, T, L, L_pad, B, ring depth, shared bytes, stream
@@ -80,9 +81,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives (named after
+    the source, every header beside it and the flags)."""
     digest = hashlib.sha256()
-    digest.update((CSRC / source).read_bytes())
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 

@@ -40,6 +40,16 @@ launch_counts = {"noblank_lattice_forward": 0, "noblank_lattice_backward": 0,
 
 _SOURCE = "noblank_lattice.cu"
 
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+#: the alpha chunks (rows) the shard backward kernels are built for,
+#: largest first
+SHARD_CHUNKS = (16, 4, 1)
+#: the shard backward's block (its launch bounds): a chunk's weights
+#: spread over all of it, and the kernel ran faster with more threads up
+#: to 512 (PERF.md, PR 6)
+SHARD_THREADS = 512
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -196,16 +206,18 @@ def _require(kernel: str, **tensors) -> None:
 
 
 def launch(source, name, counts, operands, out, dims):
-    """Launch ``name`` from ``csrc/<source>`` on ``out``'s current stream:
-    pointers of ``operands`` then of ``out``, then the int ``dims``; raise
-    on a refused launch and count it in ``counts``."""
+    """Launch ``name`` from ``csrc/<source>`` on the current stream of the
+    output's device: pointers of ``operands`` then of ``out`` (one tensor,
+    or a tuple of them), then the int ``dims``; raise on a refused launch
+    and count it in ``counts``.  Returns ``out``."""
     from ctc_tpu_torch.ops import cuda_build
 
+    outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
     lib = cuda_build.load(source)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(outs[0].device):
+        stream = torch.cuda.current_stream(outs[0].device).cuda_stream
         rc = getattr(lib, name)(*(t.data_ptr() for t in operands),
-                                out.data_ptr(), *dims, stream)
+                                *(t.data_ptr() for t in outs), *dims, stream)
     _check(rc, name)
     counts[name] += 1
     return out
@@ -238,16 +250,47 @@ def noblank_shard_alpha_kernel(em, target_lengths, stay0, adv0):
                   em.shape)
 
 
+def shard_backward_plan(width: int, weights: int,
+                        mask_bytes: int = 0) -> tuple[int, int, int]:
+    """``(chunk, threads, shared bytes)`` of a shard backward kernel at
+    lattice width ``width``, whose cells each take ``weights`` branch
+    weights and ``mask_bytes`` mask bytes (noblank 2 and 0, blank 3 and 1).
+
+    A block holds two staged alpha chunks of ``chunk`` rows, the chunk's
+    weights, the carried g double buffer, the ``g_seed`` row, the two init
+    rows and their weights: ``(2 + weights) * chunk + 5 + weights`` floats
+    per cell (the kernels' ``shard_floats_per_cell``).  ``chunk`` is the
+    largest of ``SHARD_CHUNKS`` that fits in ``SMEM_LIMIT`` (16 up to width
+    818 noblank and 658 blank, 4 up to 2526 and 2057, then 1); the block is
+    ``SHARD_THREADS`` threads, which stride over wider rows.  Raises
+    ``ValueError`` above the widths where even one row does not fit (5282
+    noblank, 4385 blank)."""
+    for chunk in SHARD_CHUNKS:
+        floats = (2 + weights) * chunk + 5 + weights
+        smem = (4 * floats + mask_bytes) * width
+        if smem <= SMEM_LIMIT:
+            return chunk, SHARD_THREADS, smem
+    raise ValueError(
+        f"lattice width {width}: the shard backward's rows do not fit in the "
+        f"{SMEM_LIMIT} bytes of shared memory a block may use")
+
+
 def noblank_shard_grad_kernel(alpha, input_lengths, target_lengths,
-                              final_bar, g_seed):
-    """Launch the shard backward kernel: g ``[t_s, B, L]`` from alpha, the
-    final log-prob's cotangent and the boundary row's ``g_seed``."""
+                              final_bar, g_seed, stay0, adv0):
+    """Launch the shard backward kernel: ``(g [t_s, B, L], d stay0 [B, L],
+    d adv0 [B, L])`` from alpha, the final log-prob's cotangent, the
+    boundary row's ``g_seed`` and the init rows (the plain path's
+    :func:`noblank_shard_grad_plain` and :func:`init_row_grads` in one
+    launch)."""
+    plan = shard_backward_plan(alpha.shape[2], weights=2)
     _require("noblank_shard_backward", alpha=alpha,
              input_lengths=input_lengths, target_lengths=target_lengths,
-             final_bar=final_bar, g_seed=g_seed)
+             final_bar=final_bar, g_seed=g_seed, stay0=stay0, adv0=adv0)
     return launch(_SOURCE, "noblank_shard_backward", launch_counts,
-                  (alpha, input_lengths, target_lengths, final_bar, g_seed),
-                  torch.empty_like(alpha), alpha.shape)
+                  (alpha, input_lengths, target_lengths, final_bar, g_seed,
+                   stay0, adv0),
+                  (torch.empty_like(alpha), torch.empty_like(stay0),
+                   torch.empty_like(adv0)), (*alpha.shape, *plan))
 
 
 # ---------------------------------------------------------------------------
@@ -375,11 +418,15 @@ class NoBlankShardLattice(torch.autograd.Function):
     @staticmethod
     def backward(ctx, final_bar, boundary_bar):
         alpha, stay0, adv0, input_lengths, target_lengths = ctx.saved_tensors
-        grad = (noblank_shard_grad_kernel if ctx.use_kernel
-                else noblank_shard_grad_plain)
-        g = grad(alpha, input_lengths, target_lengths,
-                 final_bar.contiguous(), boundary_bar.contiguous())
-        d_stay0, d_adv0 = init_row_grads(g[0], stay0, adv0, target_lengths)
+        bars = (final_bar.contiguous(), boundary_bar.contiguous())
+        if ctx.use_kernel:
+            g, d_stay0, d_adv0 = noblank_shard_grad_kernel(
+                alpha, input_lengths, target_lengths, *bars, stay0, adv0)
+        else:
+            g = noblank_shard_grad_plain(alpha, input_lengths, target_lengths,
+                                         *bars)
+            d_stay0, d_adv0 = init_row_grads(g[0], stay0, adv0,
+                                             target_lengths)
         return g, d_stay0, d_adv0, None, None, None
 
 

@@ -542,50 +542,89 @@ def _card_vjp(op, dev, em, r0, r1, extra, d_final, d_boundary):
                                                a.grad, b.grad)]
 
 
+# the card cases beyond SHARD_CASES: the main-path shard, and the shard
+# backward's edges (T not a multiple of its 16-row alpha chunk, T below it,
+# the width where its plan drops to 4-row chunks, W = 1)
+CARD_SHARD_CASES = {
+    "main_path": (16, 32, 64, "random", list(range(-2, 30))),
+    "T37": (37, 8, 24, "random", [37, 0, 1, 20, 36, 38, 50, -2]),
+    "T3": (3, 8, 10, "random", [3, 0, 1, 2, 4, 6, -1, 3]),
+    "plan_boundary": (5, 3, 819, "random", [5, 2, 7]),
+    "W1": (5, 4, 1, "init", [1, 5, 9, 0]),
+}
+BLANK_CARD_SHARD_CASES = {
+    "main_path": (16, 64, 32, "random", list(range(-2, 62))),
+    "T37": (37, 8, 12, "random", [37, 0, 1, 20, 36, 38, 50, -2]),
+    "T3": (3, 8, 4, "random", [3, 0, 1, 2, 4, 6, -1, 3]),
+    "plan_boundary": (5, 3, 329, "random", [5, 2, 7]),  # S = 659
+    "W1": (5, 4, 0, "random", [1, 5, 9, 0]),  # S = 1: the blank slot alone
+}
+
+
+def _refuse(*args):
+    raise AssertionError("init_row_grads ran on the kernel path")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(SHARD_CASES) + ["main_path"])
-def test_noblank_shard_kernels_match_plain_on_card(cuda_device, case):
-    T, B, L, rows, lengths = SHARD_CASES.get(
-        case, (16, 32, 64, "random", list(range(-2, 30))))
+@pytest.mark.parametrize("case", list(SHARD_CASES) + list(CARD_SHARD_CASES))
+def test_noblank_shard_kernels_match_plain_on_card(cuda_device, case,
+                                                   monkeypatch):
+    T, B, L, rows, lengths = {**SHARD_CASES, **CARD_SHARD_CASES}[case]
     em, r0, r1, inl, d_final, d_boundary = _shard_case(
         9, T, B, L, rows, lengths, lc.noblank_alpha_init)
     tgt = np.random.default_rng(2).integers(1, L + 1, size=B).astype(np.int32)
     extra = (torch.tensor(inl), torch.tensor(tgt))
     before = dict(lc.launch_counts)
-    got = _card_vjp(lc.noblank_shard_lattice_cuda, cuda_device, em, r0, r1,
-                    extra, d_final, d_boundary)
+    with monkeypatch.context() as m:
+        # the kernel computes the init rows' gradients itself
+        m.setattr(lc, "init_row_grads", _refuse)
+        got = _card_vjp(lc.noblank_shard_lattice_cuda, cuda_device, em, r0,
+                        r1, extra, d_final, d_boundary)
     assert (lc.launch_counts["noblank_shard_forward"]
             - before["noblank_shard_forward"]) == 1
     assert (lc.launch_counts["noblank_shard_backward"]
             - before["noblank_shard_backward"]) == 1
     want = _card_vjp(lc.noblank_shard_lattice_plain, cuda_device, em, r0, r1,
                      extra, d_final, d_boundary)
-    for i, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(g, w, err_msg=str(i),
-                                   **(LOSS_TOL if i < 2 else GRAD_TOL))
+    for name, g, w in zip(("final", "boundary", "d em", "d stay0", "d adv0"),
+                          got, want):
+        np.testing.assert_allclose(
+            g, w, err_msg=name,
+            **(LOSS_TOL if name in ("final", "boundary") else GRAD_TOL))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(BLANK_SHARD_CASES) + ["main_path"])
-def test_blank_shard_kernels_match_plain_on_card(cuda_device, case):
-    T, B, L, rows, lengths = BLANK_SHARD_CASES.get(
-        case, (16, 64, 32, "random", list(range(-2, 62))))
-    targets, tgt = _blank_targets(3, B, L, case.startswith("repeats"))
-    logits = torch.tensor(np.random.default_rng(4).standard_normal(
-        (T, B, 7)).astype(np.float32))
-    _, skip = blank_emissions_and_skip(logits, torch.tensor(targets), 0)
+@pytest.mark.parametrize("case", list(BLANK_SHARD_CASES)
+                         + list(BLANK_CARD_SHARD_CASES))
+def test_blank_shard_kernels_match_plain_on_card(cuda_device, case,
+                                                 monkeypatch):
+    T, B, L, rows, lengths = {**BLANK_SHARD_CASES,
+                              **BLANK_CARD_SHARD_CASES}[case]
+    if L:
+        targets, tgt = _blank_targets(3, B, L, case.startswith("repeats"))
+        logits = torch.tensor(np.random.default_rng(4).standard_normal(
+            (T, B, 7)).astype(np.float32))
+        _, skip = blank_emissions_and_skip(logits, torch.tensor(targets), 0)
+    else:  # no labels: nothing skips into the one slot
+        tgt = np.zeros(B, np.int32)
+        skip = torch.zeros((B, 1), dtype=torch.bool)
     em, r0, r1, inl, d_final, d_boundary = _shard_case(
         5, T, B, 2 * L + 1, rows, lengths, bl.blank_alpha_init)
     extra = (skip, torch.tensor(inl), torch.tensor(tgt))
     before = dict(bl.launch_counts)
-    got = _card_vjp(bl.blank_shard_lattice_cuda, cuda_device, em, r0, r1,
-                    extra, d_final, d_boundary)
+    with monkeypatch.context() as m:
+        # the kernel computes the init rows' gradients itself
+        m.setattr(bl, "init_row_grads", _refuse)
+        got = _card_vjp(bl.blank_shard_lattice_cuda, cuda_device, em, r0, r1,
+                        extra, d_final, d_boundary)
     assert (bl.launch_counts["blank_shard_forward"]
             - before["blank_shard_forward"]) == 1
     assert (bl.launch_counts["blank_shard_backward"]
             - before["blank_shard_backward"]) == 1
     want = _card_vjp(bl.blank_shard_lattice_plain, cuda_device, em, r0, r1,
                      extra, d_final, d_boundary)
-    for i, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(g, w, err_msg=str(i),
-                                   **(LOSS_TOL if i < 2 else GRAD_TOL))
+    for name, g, w in zip(("final", "boundary", "d em", "d init0",
+                           "d skip0"), got, want):
+        np.testing.assert_allclose(
+            g, w, err_msg=name,
+            **(LOSS_TOL if name in ("final", "boundary") else GRAD_TOL))
