@@ -632,7 +632,7 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
         step(state, batch, gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with count_init_row_grads() as init_row_calls, profile(
+    with count_calls() as calls, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -654,8 +654,11 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
           "device_ms_per_step": device_ms / steps if events else None,
           "device_busy_share": device_ms / window_ms if events else None,
           "kernels_per_step": sum(e.count for e in events) / steps,
-          # the shard ops' torch-op init-row gradients (the plain path's)
-          "init_row_grads_calls_per_step": init_row_calls[0] / steps,
+          # the shard ops' torch-op epilogues (the plain path's): the
+          # init-row gradients, and the final cell's gather (which the
+          # unsharded NLL also runs)
+          "init_row_grads_calls_per_step": calls["init_row_grads"] / steps,
+          "gather_final_calls_per_step": calls["gather_final"] / steps,
           "lattice_us_per_step": lattice_us / steps,
           "top_device_kernels": [
               {"name": e.key[:80], "us_per_step": dev_us(e) / steps,
@@ -663,29 +666,31 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
 
 
 @contextlib.contextmanager
-def count_init_row_grads():
-    """Count calls of both families' ``init_row_grads`` (the shard ops'
-    backward looks it up in its module at each call) while the block runs;
-    yields a one-element list holding the count."""
+def count_calls(names=("init_row_grads", "gather_final")):
+    """Count calls of both families' ``init_row_grads`` and
+    ``gather_final`` (the torch ops the shard ops' kernels fold in; the
+    ops look them up in their module at each call) while the block runs;
+    yields a dict of counts by name."""
     from ctc_tpu_torch.ops import blank_lattice_cuda as bl
     from ctc_tpu_torch.ops import lattice_cuda as lc
 
-    calls = [0]
-    originals = {mod: mod.init_row_grads for mod in (lc, bl)}
+    calls = dict.fromkeys(names, 0)
+    originals = {(mod, name): getattr(mod, name) for mod in (lc, bl)
+                 for name in names}
 
-    def counting(fn):
+    def counting(name, fn):
         def wrapped(*args, **kwargs):
-            calls[0] += 1
+            calls[name] += 1
             return fn(*args, **kwargs)
         return wrapped
 
-    for mod, fn in originals.items():
-        mod.init_row_grads = counting(fn)
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, counting(name, fn))
     try:
         yield calls
     finally:
-        for mod, fn in originals.items():
-            mod.init_row_grads = fn
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
 
 
 def dev_us(e) -> float:
@@ -947,9 +952,11 @@ def phase_times_blank(card, name):
     return result
 
 def make_shard_case(gen, family, shape, *, rows, repeats=False,
-                    zero_len=False):
+                    zero_len=False, batch_slice=False):
     """One shard's operands on the card: em ``[t_s, B, W]`` (blank: the
-    normalized gather of random logits, as the pipeline builds it), the two
+    normalized gather of random logits, as the pipeline builds it; with
+    ``batch_slice``, the second of four microbatches of a batch four times
+    as wide, strided in B as the pipeline hands it to the op), the two
     init rows (``rows='shard0'``: shard 0's; else random rows with unreached
     cells at the sentinel), the uint8 skip mask (blank), shard-local input
     lengths below 1, inside the shard and above it, target lengths, and
@@ -962,10 +969,11 @@ def make_shard_case(gen, family, shape, *, rows, repeats=False,
     from ctc_tpu_torch.ops.logspace import BLANK_NEG, NEG_SENTINEL
 
     t_s, B, L = shape
+    wide = 4 if batch_slice else 1
     skip = None
     if family == "noblank":
         width, neg = L, NEG_SENTINEL
-        em = torch.randn((t_s, B, L), generator=gen) - 1.0
+        em = torch.randn((t_s, wide * B, L), generator=gen) - 1.0
         tgt = torch.randint(1, L + 1, (B,), generator=gen)
         init = lc.noblank_alpha_init(B, width)
     else:
@@ -973,14 +981,15 @@ def make_shard_case(gen, family, shape, *, rows, repeats=False,
         targets = torch.randint(1, BLANK_CLASSES, (B, L), generator=gen)
         if repeats:
             targets[:, 1::2] = targets[:, 0::2][:, : targets[:, 1::2].shape[1]]
-        logits = torch.randn((t_s, B, BLANK_CLASSES), generator=gen)
+        logits = torch.randn((t_s, wide * B, BLANK_CLASSES), generator=gen)
+        targets = targets.repeat(wide, 1)
         if L:
             em, skip = blank_emissions_and_skip(logits, targets, 0,
                                                 normalize=True)
         else:  # the blank slot alone (S = 1), which nothing skips into
             em = logits[:, :, :1] - torch.logsumexp(logits, 2, keepdim=True)
-            skip = torch.zeros((B, 1), dtype=torch.bool)
-        skip = skip.to(torch.uint8)
+            skip = torch.zeros((wide * B, 1), dtype=torch.bool)
+        skip = skip[:B].to(torch.uint8)
         tgt = torch.randint(0 if zero_len or not L else 1, L + 1, (B,),
                             generator=gen)
         init = bl.blank_alpha_init(B, width)
@@ -995,25 +1004,29 @@ def make_shard_case(gen, family, shape, *, rows, repeats=False,
         r1[::2, -2:] = neg
     d_final = torch.randn((B,), generator=gen)
     d_boundary = torch.randn((B, width), generator=gen)
-    out = {"em": em.contiguous(), "r0": r0, "r1": r1, "skip": skip,
+    em = em.to("cuda")
+    out = {"em": em[:, B:2 * B] if batch_slice else em, "r0": r0, "r1": r1,
+           "skip": skip,
            "inlen": inlen.int(), "tgt": tgt.int(), "d_final": d_final,
-           "d_boundary": d_boundary}
-    return {k: (v.to("cuda") if v is not None else None)
+           "d_boundary": d_boundary,
+           # the tensor em is a batch slice of, and the slice
+           "em_base": em if batch_slice else None, "mb": slice(B, 2 * B)}
+    return {k: (v.to("cuda") if isinstance(v, torch.Tensor) else v)
             for k, v in out.items()}
 
 
 def shard_fns(family, c):
-    """(alpha kernel, alpha plain, grad kernel, grad plain, op kernel, op
-    plain) of one family, bound to the case ``c``'s operands."""
+    """(forward kernel, forward plain, grad kernel, grad plain, op kernel,
+    op plain) of one family, bound to the case ``c``'s operands; each
+    forward returns ``(alpha, final, boundary)``."""
     from ctc_tpu_torch.ops import blank_lattice_cuda as bl
     from ctc_tpu_torch.ops import lattice_cuda as lc
 
     if family == "noblank":
-        mod, head, tail = lc, (c["tgt"],), (c["inlen"], c["tgt"])
-        g_args = (c["inlen"], c["tgt"])
+        mod, tail = lc, (c["inlen"], c["tgt"])
     else:
-        mod, head, tail = bl, (c["skip"],), (c["skip"], c["inlen"], c["tgt"])
-        g_args = (c["skip"], c["inlen"], c["tgt"])
+        mod, tail = bl, (c["skip"], c["inlen"], c["tgt"])
+    g_args = tail
     rows = (c["r0"], c["r1"])
     bars = (c["d_final"], c["d_boundary"])
     # the init rows' gradients: in the kernel's launch, torch ops after the
@@ -1025,10 +1038,10 @@ def shard_fns(family, c):
         return (g, *mod.init_row_grads(g[0], *rows, *init_tail))
 
     return {
-        "alpha_kernel": lambda: getattr(mod, f"{family}_shard_alpha_kernel")(
-            c["em"], *head, *rows),
-        "alpha_plain": lambda: getattr(mod, f"{family}_shard_alpha_plain")(
-            c["em"], *head, *rows),
+        "forward_kernel": lambda: getattr(
+            mod, f"{family}_shard_forward_kernel")(c["em"], *tail, *rows),
+        "forward_plain": lambda: getattr(
+            mod, f"{family}_shard_forward_plain")(c["em"], *tail, *rows),
         # (g, d init row 0, d init row 1)
         "grad_kernel": lambda alpha: getattr(
             mod, f"{family}_shard_grad_kernel")(alpha, *g_args, *bars,
@@ -1036,7 +1049,6 @@ def shard_fns(family, c):
         "grad_plain": grad_plain,
         "op_kernel": getattr(mod, f"{family}_shard_lattice_cuda"),
         "op_plain": getattr(mod, f"{family}_shard_lattice_plain"),
-        "final": mod.gather_final,
         "tail": tail,
     }
 
@@ -1090,6 +1102,44 @@ def blank_shard_chain(em, skip, inlen, tgt):
     return -total
 
 
+def backward_parity(f, c, alpha_k, alpha_p, tag):
+    """The shard backward kernel against its plain version on the alphas
+    of the case ``c``, and the autograd op's gradients (kernel path against
+    plain path) with respect to em and both init rows; em enters the op as
+    the batch slice ``c`` made it.  Returns the row's fields."""
+    import torch
+
+    g_k, g_p = f["grad_kernel"](alpha_k), f["grad_plain"](alpha_p)
+    grads = {}
+    for impl in ("op_kernel", "op_plain"):
+        a, b = (c[k].clone().requires_grad_() for k in ("r0", "r1"))
+        if c["em_base"] is None:
+            leaf = e = c["em"].clone().requires_grad_()
+        else:
+            leaf = c["em_base"].clone().requires_grad_()
+            e = leaf[:, c["mb"]]
+        final, boundary = f[impl](e, a, b, *f["tail"])
+        ((final * c["d_final"]).sum()
+         + (boundary * c["d_boundary"]).sum()).backward()
+        d_em = leaf.grad if c["em_base"] is None else leaf.grad[:, c["mb"]]
+        grads[impl] = (d_em, a.grad, b.grad)
+    torch.cuda.synchronize()
+    for name, gk, gp in zip(("grad", "d init_row_0", "d init_row_1"),
+                            g_k, g_p):
+        check_close(f"{tag} {name}", gk, gp, GRAD_RTOL, GRAD_ATOL)
+    op_dev = {}
+    for name, gk, gp in zip(("em", "init_row_0", "init_row_1"),
+                            grads["op_kernel"], grads["op_plain"]):
+        check_close(f"{tag} autograd d {name}", gk, gp, GRAD_RTOL,
+                    GRAD_ATOL)
+        op_dev[name] = max_dev(gk, gp)
+    return {"grad_max_abs_dev": max_dev(g_k[0], g_p[0]),
+            "init_row_grad_max_abs_dev": [max_dev(g_k[1], g_p[1]),
+                                          max_dev(g_k[2], g_p[2])],
+            "autograd_grad_max_abs_dev": op_dev,
+            "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL]}
+
+
 def phase_parity_seq():
     """Each boundary kernel against its plain version on the card: the
     final log-prob, the reachable alpha cells, g, and the autograd op's
@@ -1112,8 +1162,15 @@ def phase_parity_seq():
         # the shard backward's edges: T not a multiple of its 16-row alpha
         # chunk, T below it, the width where its plan drops to 4-row chunks
         # (noblank W 819, blank S 659, also wider than the 512-thread block),
-        # and W = 1 (blank: L = 0)
+        # and W = 1 (blank: L = 0); the shard forward's: T = 1 and T = 3
+        # (below its 8-row em ring), the widest row of its warps layout
+        # (noblank W 768, blank S 511) and the narrowest of its block
+        # layout (W 769, S 513), the widest rows of the 8-row ring
+        # (noblank W 5810, blank S 5669) and the first of the 2-row one
+        # (W 5811, S 5671), forward only (the backward's plan refuses
+        # them), and em as a batch slice of a wider batch
         boundary_l = 819 if family == "noblank" else 329
+        depth_l = (5810, 5811) if family == "noblank" else (2834, 2835)
         cases = [
             ("main_path", main_shard, dict(rows="random")),
             ("main_path_shard0", main_shard, dict(rows="shard0")),
@@ -1126,22 +1183,23 @@ def phase_parity_seq():
             ("plan_boundary", (6, 4, boundary_l), dict(rows="random")),
             ("W1", (5, 4, 1 if family == "noblank" else 0),
              dict(rows="random")),
+            ("T1", (1, 16, 12), dict(rows="random")),
+            ("strided_microbatch", main_shard,
+             dict(rows="random", batch_slice=True)),
+            ("warps_widest", (6, 4, 768 if family == "noblank" else 255),
+             dict(rows="random")),
+            ("block_narrowest", (6, 4, 769 if family == "noblank" else 256),
+             dict(rows="random")),
+            ("ring8_widest", (5, 2, depth_l[0]), dict(rows="random")),
+            ("ring2_first", (5, 2, depth_l[1]), dict(rows="random")),
         ]
+        forward_only = ("ring8_widest", "ring2_first")
         for label, shape, flags in cases:
             c = make_shard_case(gen, family, shape, **flags)
             f = shard_fns(family, c)
-            alpha_k, alpha_p = f["alpha_kernel"](), f["alpha_plain"]()
-            final_k = f["final"](alpha_k, c["inlen"], c["tgt"])
-            final_p = f["final"](alpha_p, c["inlen"], c["tgt"])
-            g_k, g_p = f["grad_kernel"](alpha_k), f["grad_plain"](alpha_p)
-            grads = {}
-            for impl in ("op_kernel", "op_plain"):
-                e, a, b = (c[k].clone().requires_grad_()
-                           for k in ("em", "r0", "r1"))
-                final, boundary = f[impl](e, a, b, *f["tail"])
-                ((final * c["d_final"]).sum()
-                 + (boundary * c["d_boundary"]).sum()).backward()
-                grads[impl] = (e.grad, a.grad, b.grad)
+            fwd_k, fwd_p = f["forward_kernel"](), f["forward_plain"]()
+            alpha_k, final_k, boundary_k = fwd_k
+            alpha_p, final_p, boundary_p = fwd_p
             torch.cuda.synchronize()
             reach = alpha_p > (-1e12 if family == "noblank" else -1e29)
             tag = f"seq {family} {label}"
@@ -1149,27 +1207,20 @@ def phase_parity_seq():
                         LOSS_ATOL)
             check_close(f"{tag} alpha", alpha_k[reach], alpha_p[reach],
                         LOSS_RTOL, LOSS_ATOL)
-            for name, gk, gp in zip(("grad", "d init_row_0", "d init_row_1"),
-                                    g_k, g_p):
-                check_close(f"{tag} {name}", gk, gp, GRAD_RTOL, GRAD_ATOL)
-            op_dev = {}
-            for name, gk, gp in zip(("em", "init_row_0", "init_row_1"),
-                                    grads["op_kernel"], grads["op_plain"]):
-                check_close(f"{tag} autograd d {name}", gk, gp, GRAD_RTOL,
-                            GRAD_ATOL)
-                op_dev[name] = max_dev(gk, gp)
+            check_close(f"{tag} boundary", boundary_k[reach[-1]],
+                        boundary_p[reach[-1]], LOSS_RTOL, LOSS_ATOL)
             row = {"phase": "parity_seq", "family": family, "case": label,
                    "shard_shape_TBL": list(shape),
                    "width": int(c["em"].shape[2]),
+                   "em_strides": list(c["em"].stride()),
                    "final_max_abs_dev": max_dev(final_k, final_p),
                    "alpha_reachable_max_abs_dev": max_dev(alpha_k[reach],
                                                           alpha_p[reach]),
-                   "grad_max_abs_dev": max_dev(g_k[0], g_p[0]),
-                   "init_row_grad_max_abs_dev": [max_dev(g_k[1], g_p[1]),
-                                                 max_dev(g_k[2], g_p[2])],
-                   "autograd_grad_max_abs_dev": op_dev,
-                   "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL],
-                   "rtol_atol_grad": [GRAD_RTOL, GRAD_ATOL]}
+                   "boundary_reachable_max_abs_dev": max_dev(
+                       boundary_k[reach[-1]], boundary_p[reach[-1]]),
+                   "rtol_atol_loss": [LOSS_RTOL, LOSS_ATOL]}
+            if label not in forward_only:
+                row.update(backward_parity(f, c, alpha_k, alpha_p, tag))
             emit(row)
             errs[(family, label)] = row
         # a 4-shard chain of the boundary kernels against the unsharded
@@ -1236,14 +1287,15 @@ def phase_main_path_seq(work):
         cache = os.path.join(work, f"seq_{family}")
         reset_counts()
         t0 = time.perf_counter()
-        with count_init_row_grads() as init_row_calls:
+        with count_calls() as calls:
             history = main(args + ["--cache-dir", cache])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = read_counts()
-        if init_row_calls[0]:
-            fail(f"seq {family}: init_row_grads ran {init_row_calls[0]} "
-                 f"times on the kernel path")
+        for name, n in calls.items():
+            if n:
+                fail(f"seq {family}: {name} ran {n} times on the kernel "
+                     "path")
         epochs = len(history)
         train_steps, eval_steps = 8 * epochs, 2 * epochs  # the loader
         per_step = SEQ_SHARDS * SEQ_MAIN[family][3]
@@ -1259,7 +1311,8 @@ def phase_main_path_seq(work):
         emit({"phase": "main_path_seq", "loss": family, "argv": args,
               "seconds": seconds, "train_steps": train_steps,
               "eval_steps": eval_steps, "launches": got,
-              "init_row_grads_calls": init_row_calls[0],
+              "init_row_grads_calls": calls["init_row_grads"],
+              "gather_final_calls": calls["gather_final"],
               "train_loss_by_epoch": train_losses,
               "val_loss_by_epoch": [h["val"]["loss"] for h in history],
               "step_s_host_avg": [h["train"]["time"] for h in history]})
@@ -1358,26 +1411,27 @@ def phase_times_seq(card, name):
             shard = (T // SEQ_SHARDS, B // M, L)
             c = make_shard_case(gen, family, shard, rows="random")
             f = shard_fns(family, c)
-            alpha = f["alpha_kernel"]()
+            alpha = f["forward_kernel"]()[0]
             t_s, mb, width = c["em"].shape
             cells, row = t_s * mb * width, mb * width
             if family == "noblank":
-                # em in, alpha out, two init rows and target lengths in;
-                # alpha in, g out, g_seed, two init rows and three [B]
-                # vectors in, two init-row gradients out
-                fwd_bytes = 8 * cells + 8 * row + 4 * mb
+                # em in, alpha out, two init rows and the two length
+                # vectors in, final and the boundary row out; alpha in, g
+                # out, g_seed, two init rows and three [B] vectors in, two
+                # init-row gradients out
+                fwd_bytes = 8 * cells + 12 * row + 12 * mb
                 bwd_bytes = 8 * cells + 20 * row + 12 * mb
                 # as rows 1-2, the init row as one more row of cells
                 fwd_ops, bwd_ops = 8 * cells, 17 * (cells + row)
             else:
                 # as above plus the [B, S] byte mask in each
-                fwd_bytes = 8 * cells + 9 * row
+                fwd_bytes = 8 * cells + 13 * row + 12 * mb
                 bwd_bytes = 8 * cells + 21 * row + 12 * mb
                 fwd_ops, bwd_ops = 14 * cells, 49 * (cells + row)
             fns = {
                 f"{family}_shard_forward": (
-                    f"{family}_forward_kernel", f["alpha_kernel"],
-                    f["alpha_plain"], fwd_bytes, fwd_ops),
+                    f"{family}_shard_forward_kernel", f["forward_kernel"],
+                    f["forward_plain"], fwd_bytes, fwd_ops),
                 f"{family}_shard_backward": (
                     f"{family}_shard_backward_kernel",
                     lambda: f["grad_kernel"](alpha),
@@ -1691,8 +1745,10 @@ def main() -> None:
         if "_shard_" in kname:
             run_launches = seq_launches[family]
             err = seq_errs[(family, "main_path")]
-            err = (err["final_max_abs_dev"] if kname.endswith("forward")
-                   else err["grad_max_abs_dev"])
+            err = (max(err["final_max_abs_dev"],
+                       err["alpha_reachable_max_abs_dev"],
+                       err["boundary_reachable_max_abs_dev"])
+                   if kname.endswith("forward") else err["grad_max_abs_dev"])
         else:
             run_launches = blank_launches if family == "blank" else launches
             main_errs = (blank_errs if family == "blank" else errs)[

@@ -33,12 +33,32 @@
 // weights are exp(source - lse) with every masked source at the sentinel,
 // exactly as the XLA scan's autodiff and the Pallas kernel compute them.
 //
-// The shard forward is the same loop with the lattice's two boundaries
-// handed in (kShard = true): the carry starts from the row init0[b], and
+// The shard forward (blank_shard_forward_kernel<kDepth, kHalo>, entry
+// blank_shard_forward; replaces
+// blank_lattice_pallas.py:_forward_kernel_boundary) runs one T-shard from
+// the lattice's two boundaries: the carry starts from the row init0[b] and
 // the skip source of local t = 0 is the row skip0[b] (the carry at every
-// later step).  On shard 0 the pipeline passes the virtual alpha(-1) row
-// as init0 and the all-sentinel row as skip0, which reproduces the t = 0
-// skip gate exactly.
+// later step).  The same launch writes final[b], the log-add of the cells
+// 2 tgt and 2 tgt - 1 (the first alone when tgt = 0; indices clamped) at
+// local row inlen - 1, 0 unless 1 <= inlen <= T, and the boundary row
+// alpha[T-1, b]; it reads the pipeline's batch slice of em in place.  It
+// has noblank_lattice.cu's design, for the same reason (T dependent steps
+// bind it, not bytes: 0.17 and 0.48 us of bound at [16, 64, 65] and [1024,
+// 4, 49]): the warps layout up to kWarpsMaxWidth = 512 slots, a lane a slot
+// with its skip permission in a register, the advance and skip sources
+// from the lanes one and two before by __shfl_up_sync; a wider row takes
+// warps that own 16 slots and carry the kHalo = 16 before them, which go
+// stale two lanes a step and are refreshed every 8 steps; em on the
+// per-thread cp.async ring; steps 0 and T-1 peeled; the block layout
+// beyond 512 slots.  The two final cells may lie in different warps: their
+// owners write them to shared memory and thread 0 log-adds them after the
+// last barrier.  A step carries two dependent log-adds (~60 dependent
+// instructions), and the earlier kernel's step (~575-630 SM cycles at 1980
+// MHz) was already close to that chain, so the redesign gains little here.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; python -m
+// ctc_tpu_torch.probes.shard_ab, median of 5 profiler windows): 6.127 us
+// at [16, 64, 65] in five warps (6.077 before: 0.8% slower) and 0.2877 ms
+// at [1024, 4, 49] in four (0.2999 before).
 //
 // The shard backward (blank_shard_backward_kernel) adds the cotangent of
 // the outgoing boundary row, g_seed[b], at the last local row, injects the
@@ -121,12 +141,8 @@ struct FinalInject {
 // alpha[t, b, s] = em[t, b, s] + logaddexp3(alpha[t-1, b, s],
 //     alpha[t-1, b, s-1], skip_ok[b, s] && t > 0 ? alpha[t-1, b, s-2] : NEG)
 // with alpha(-1) = 0 at s = 0 and NEG elsewhere.
-// kShard: alpha(-1) = init0[b], and the skip source at t = 0 is skip0[b].
-template <bool kShard>
 __global__ void blank_forward_kernel(const float* __restrict__ em,
                                      const unsigned char* __restrict__ skip,
-                                     const float* __restrict__ init0,
-                                     const float* __restrict__ skip0,
                                      float* __restrict__ alpha, int T, int B,
                                      int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
@@ -138,11 +154,7 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
   const unsigned char* skip_b = skip + static_cast<size_t>(b) * S;
 
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    if constexpr (kShard) {
-      rows[s] = init0[static_cast<size_t>(b) * S + s];
-    } else {
-      rows[s] = (s == 0) ? 0.0f : kNeg;
-    }
+    rows[s] = (s == 0) ? 0.0f : kNeg;
     skip_sh[s] = skip_b[s];
   }
   __syncthreads();
@@ -155,19 +167,326 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
       const float e = em_t[s];
       const float stay = cur[s];
       const float adv = (s >= 1) ? cur[s - 1] : kNeg;
-      float skp = kNeg;
-      if (s >= 2 && skip_sh[s]) {
-        if (t > 0) {
-          skp = cur[s - 2];
-        } else if constexpr (kShard) {
-          skp = skip0[static_cast<size_t>(b) * S + s - 2];
-        }
-      }
+      const float skp = (s >= 2 && skip_sh[s] && t > 0) ? cur[s - 2] : kNeg;
       const float a = logaddexp3(stay, adv, skp) + e;
       alpha_t[s] = a;
       nxt[s] = a;
     }
     __syncthreads();
+  }
+}
+
+// Shared memory of the shard forward, in floats per slot s: the carried
+// alpha double buffer and the em ring of kDepth rows; then one skip byte
+// per slot.
+__host__ __device__ constexpr int shard_forward_floats_per_cell(int depth) {
+  return 2 + depth;
+}
+
+// A compile-time flag passed to the step lambdas (which step is peeled).
+template <bool kValue>
+struct Flag {
+  static constexpr bool value = kValue;
+};
+
+// The warps layout of the shard forward (rows of up to kWarpsMaxWidth
+// slots): one lane per slot.  A row of up to 32 slots is one warp.  A wider
+// row takes 32-lane warps of which warp w owns the kOwn = 32 - kWarpsHalo slots
+// from w * kOwn on, and carries the kWarpsHalo slots before them (the last ones
+// of warp w-1) in its first lanes.
+constexpr int kWarpsHalo = 16;
+constexpr int kOwn = 32 - kWarpsHalo;
+constexpr int kWarpsMaxWidth = 32 * kOwn;  // 32 warps of a 1024-thread block
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The threads of the warps layout at width S.
+__host__ __device__ constexpr int warps_threads(int S) {
+  return S <= 32 ? 32 : 32 * ((S + kOwn - 1) / kOwn);
+}
+
+// The shard forward of blank_shard_forward_block (below) in the warps
+// layout (that of noblank_lattice.cu's shard forward): each lane keeps its
+// slot of the carried row and its skip permission in registers and takes
+// its advance and skip sources from the lanes one and two before it by
+// __shfl_up_sync, so a step has no barrier and no shared-memory row.  A
+// warp's first lanes lack those sources, so after j steps its first 2j
+// lanes are stale; the kHalo = 16 halo lanes are refreshed from their
+// owners every kHalo / 2 steps, through shared memory and one barrier
+// (none in a one-warp row).  em comes through the per-thread cp.async ring
+// (kDepth slots a thread); the init rows and the skip mask come into
+// registers with the first group.  Only a slot's owner stores it; the two
+// final cells go through shared memory to thread 0.
+template <int kDepth, int kHalo>
+__device__ __forceinline__ void blank_shard_forward_warps(
+    const float* __restrict__ em, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    const float* __restrict__ init0, const float* __restrict__ skip0,
+    float* __restrict__ alpha, float* __restrict__ final_out,
+    float* __restrict__ boundary, int T, int B, int S, int em_stride) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  __shared__ float fin[2];  // alpha at the two final cells
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int s = (tid >> 5) * (32 - kHalo) - kHalo + lane;  // this lane's slot
+  const bool real = s >= 0 && s < S;
+  const bool owner = real && lane >= kHalo;
+  const int b = blockIdx.x;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const bool fin_a = owner && s == min(max(2 * tgt_b, 0), S - 1);
+  const bool fin_b = owner && s == min(max(2 * tgt_b - 1, 0), S - 1);
+  const size_t b_off = static_cast<size_t>(b) * S;
+  const size_t row_stride = static_cast<size_t>(B) * S;
+
+  // the next unstaged step's em slot of this thread -> its ring slot (this
+  // thread's column of the [kDepth][nt] ring, slot bytes apart)
+  const unsigned ring_s = cp_async::shared_address(smem + tid);
+  const unsigned slot = 4 * nt;
+  const float* src = em + b_off + s;
+  int staged = 0;
+  auto stage = [&]() {
+    if (staged < T) {
+      if (real) cp_async::copy4(ring_s + (staged & (kDepth - 1)) * slot, src);
+      src += em_stride;
+    }
+    cp_async::commit();
+    ++staged;
+  };
+
+  // the carried slot, its skip permission, and step 0's advance and skip
+  // sources init0[b, s-1] and skip0[b, s-2]
+  float a = real ? init0[b_off + s] : kNeg;
+  // (four independent loads: skip0's is not made to wait for the mask's)
+  const bool skip_s = real && s >= 2 && skip[b_off + s];
+  const float adv_first = (real && s >= 1) ? init0[b_off + s - 1] : kNeg;
+  const float skip0_s = (real && s >= 2) ? skip0[b_off + s - 2] : kNeg;
+  const float skip_first = skip_s ? skip0_s : kNeg;
+  float* out = alpha + b_off + s;
+  auto step = [&](int t, auto first, auto last) {
+    float adv, skp;
+    if constexpr (decltype(first)::value) {
+      adv = adv_first;
+      skp = skip_first;
+    } else {
+      const float left1 = __shfl_up_sync(kFullMask, a, 1);
+      const float left2 = __shfl_up_sync(kFullMask, a, 2);
+      adv = (s >= 1) ? left1 : kNeg;
+      skp = skip_s ? left2 : kNeg;
+    }
+    const float e = cp_async::load(ring_s + (t & (kDepth - 1)) * slot);
+    if (real) {
+      a = logaddexp3(a, adv, skp) + e;
+      if (owner) {
+        *out = a;
+        if (t == t_fin) {
+          if (fin_a) fin[0] = a;
+          if (fin_b) fin[1] = a;
+        }
+        if constexpr (decltype(last)::value) boundary[b_off + s] = a;
+      }
+    }
+    out += row_stride;
+  };
+
+  // after step t: every kHalo / 2 steps, the halo lanes from their owners
+  int refresh = kHalo / 2;  // steps until the halo lanes go stale
+  int buf = 0;
+  auto after = [&](int t) {
+    if (kHalo > 0 && --refresh == 0 && t + 1 < T) {
+      refresh = kHalo / 2;
+      // the owners' slots, in one of two rows: one barrier a refresh
+      float* x = smem + kDepth * nt + buf * S;
+      buf ^= 1;
+      if (owner) x[s] = a;
+      __syncthreads();
+      if (real && !owner) a = x[s];
+    }
+  };
+
+  // groups 0 .. kDepth-1: steps 0 .. kDepth-1; each later step stages one
+  // more, into the slot the step before it read
+  for (int k = 0; k < kDepth; ++k) stage();
+  cp_async::wait<kDepth - 1>();  // step 0's group has landed
+  if (T == 1) {
+    step(0, Flag<true>{}, Flag<true>{});
+  } else {
+    step(0, Flag<true>{}, Flag<false>{});
+  }
+  after(0);
+  for (int t = 1; t < T - 1; ++t) {
+    stage();
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    step(t, Flag<false>{}, Flag<false>{});
+    after(t);
+  }
+  if (T > 1) {
+    stage();
+    cp_async::wait<kDepth - 1>();
+    step(T - 1, Flag<false>{}, Flag<true>{});
+  }
+  __syncthreads();  // publishes fin
+  if (tid == 0) {
+    final_out[b] = (t_fin < 0)   ? 0.0f
+                   : tgt_b > 0 ? logaddexp(fin[0], fin[1])
+                               : fin[0];
+  }
+}
+
+// One T-shard's forward: the recursion above from the init rows, with the
+// shard's epilogue in the same launch:
+//   alpha(-1) = init0[b]; the skip source of local t = 0 is skip0[b] (the
+//   carry at every later step);
+//   final[b] = logaddexp(alpha[t_f, b, 2 tgt], alpha[t_f, b, 2 tgt - 1])
+//   (the first cell alone when tgt[b] = 0; indices clamped into the row),
+//   t_f = inlen[b] - 1, and 0 unless 1 <= inlen[b] <= T (inlen is
+//   shard-local);  boundary[b] = alpha[T-1, b].
+// em [T, B, S] is read through its row stride em_stride (floats between
+// em[t, b] and em[t+1, b]); slots and samples are contiguous.
+//
+// The design of noblank_shard_forward_kernel: each thread stages its own
+// slots of em into a ring of kDepth rows, kDepth - 1 steps ahead, one
+// cp.async group per step, and needs no barrier for them.  Group 0 also
+// brings init0[b, s] into the carry row, init0[b, s-1] into the other row
+// at s and skip0[b, s-2] into ring slot kDepth-1 at s (no step's em lands
+// there before step 0 is done), so step 0 (peeled) reads only this
+// thread's copies; the skip mask is loaded into shared memory by the same
+// thread.  The last step (peeled) writes the boundary row from registers.
+// The two final cells lie in different threads' hands: each owner writes
+// its cell to shared memory at its step, the step's barrier publishes
+// both, and thread 0 log-adds them into final[b].
+template <int kDepth>
+__device__ __forceinline__ void blank_shard_forward_block(
+    const float* __restrict__ em, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    const float* __restrict__ init0, const float* __restrict__ skip0,
+    float* __restrict__ alpha, float* __restrict__ final_out,
+    float* __restrict__ boundary, int T, int B, int S, int em_stride) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  float* rows = smem;          // [2][S] carried alpha
+  float* ring = rows + 2 * S;  // [kDepth][S] em, step t in slot t % kDepth
+  unsigned char* skip_sh =     // [S] skip_ok[b]
+      reinterpret_cast<unsigned char*>(ring + kDepth * S);
+  __shared__ float fin[2];     // alpha at the two final cells
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int s_a = min(max(2 * tgt_b, 0), S - 1);
+  const int s_b = min(max(2 * tgt_b - 1, 0), S - 1);
+  const size_t b_off = static_cast<size_t>(b) * S;
+  const size_t row_stride = static_cast<size_t>(B) * S;
+  float* skip_row0 = ring + (kDepth - 1) * S;  // skip0[b, s-2] at s
+
+  // the next unstaged step's em slots of this thread -> its ring slot
+  const float* src = em + b_off;
+  int staged = 0;
+  auto stage = [&]() {
+    if (staged < T) {
+      float* slot = ring + (staged & (kDepth - 1)) * S;
+      for (int s = tid; s < S; s += nt) cp_async::copy4(slot + s, src + s);
+      src += em_stride;
+    }
+    cp_async::commit();
+    ++staged;
+  };
+
+  float* alpha_t = alpha + b_off;
+  auto step = [&](int t, auto first, auto last) {
+    const float* cur = rows + (t & 1) * S;
+    float* nxt = rows + ((t + 1) & 1) * S;
+    const float* e_t = ring + (t & (kDepth - 1)) * S;
+    for (int s = tid; s < S; s += nt) {
+      const float e = e_t[s];
+      const float stay = cur[s];
+      const bool skip_s = s >= 2 && skip_sh[s];
+      float adv, skp;
+      if constexpr (decltype(first)::value) {
+        // init0[b, s-1] and skip0[b, s-2], staged by this thread
+        adv = (s >= 1) ? nxt[s] : kNeg;
+        skp = skip_s ? skip_row0[s] : kNeg;
+      } else {
+        adv = (s >= 1) ? cur[s - 1] : kNeg;
+        skp = skip_s ? cur[s - 2] : kNeg;
+      }
+      const float a = logaddexp3(stay, adv, skp) + e;
+      alpha_t[s] = a;
+      nxt[s] = a;
+      if (t == t_fin) {
+        if (s == s_a) fin[0] = a;
+        if (s == s_b) fin[1] = a;
+      }
+      if constexpr (decltype(last)::value) boundary[b_off + s] = a;
+    }
+    alpha_t += row_stride;
+  };
+
+  // group 0: step 0's em and the init rows; then steps 1 .. kDepth-2
+  for (int s = tid; s < S; s += nt) {
+    cp_async::copy4(rows + s, init0 + b_off + s);
+    if (s >= 1) cp_async::copy4(rows + S + s, init0 + b_off + s - 1);
+    if (s >= 2) cp_async::copy4(skip_row0 + s, skip0 + b_off + s - 2);
+    skip_sh[s] = skip[b_off + s];
+  }
+  for (int k = 0; k + 1 < kDepth; ++k) stage();
+  cp_async::wait<kDepth - 2>();  // group 0 has landed
+  if (T == 1) {
+    step(0, Flag<true>{}, Flag<true>{});
+  } else {
+    step(0, Flag<true>{}, Flag<false>{});
+  }
+  // also orders step 0's read of ring slot kDepth-1 before its refill
+  __syncthreads();
+  stage();  // step kDepth-1, into slot kDepth-1
+  for (int t = 1; t < T - 1; ++t) {
+    stage();                      // step t + kDepth-1, into step t-1's slot
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    step(t, Flag<false>{}, Flag<false>{});
+    __syncthreads();
+  }
+  if (T > 1) {
+    stage();
+    cp_async::wait<kDepth - 1>();
+    step(T - 1, Flag<false>{}, Flag<true>{});
+    __syncthreads();  // publishes fin
+  }
+  if (tid == 0) {
+    final_out[b] = (t_fin < 0)   ? 0.0f
+                   : tgt_b > 0 ? logaddexp(fin[0], fin[1])
+                               : fin[0];
+  }
+}
+
+// The shard forward kernel: the warps layout (kHalo halo lanes a warp:
+// 0 for a one-warp row, kWarpsHalo for wider ones) for rows of up to
+// kWarpsMaxWidth slots, else the block layout (kHalo -1).
+template <int kDepth, int kHalo>
+__global__ void __launch_bounds__(1024)
+    blank_shard_forward_kernel(const float* __restrict__ em,
+                               const unsigned char* __restrict__ skip,
+                               const int* __restrict__ inlen,
+                               const int* __restrict__ tgt,
+                               const float* __restrict__ init0,
+                               const float* __restrict__ skip0,
+                               float* __restrict__ alpha,
+                               float* __restrict__ final_out,
+                               float* __restrict__ boundary, int T, int B,
+                               int S, int em_stride) {
+  if constexpr (kHalo >= 0) {
+    blank_shard_forward_warps<kDepth, kHalo>(em, skip, inlen, tgt, init0,
+                                             skip0, alpha, final_out,
+                                             boundary, T, B, S, em_stride);
+  } else {
+    blank_shard_forward_block<kDepth>(em, skip, inlen, tgt, init0, skip0,
+                                      alpha, final_out, boundary, T, B, S,
+                                      em_stride);
   }
 }
 
@@ -436,19 +755,90 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <bool kShard>
 cudaError_t launch_forward(const float* em, const unsigned char* skip,
-                           const float* init0, const float* skip0,
                            float* alpha, int T, int B, int S,
                            cudaStream_t stream) {
   if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
   const size_t smem = shared_bytes(S);
-  cudaError_t err = prepare(
-      reinterpret_cast<const void*>(blank_forward_kernel<kShard>), smem);
+  cudaError_t err =
+      prepare(reinterpret_cast<const void*>(blank_forward_kernel), smem);
   if (err != cudaSuccess) return err;
-  blank_forward_kernel<kShard><<<B, block_threads(S), smem, stream>>>(
-      em, skip, init0, skip0, alpha, T, B, S);
+  blank_forward_kernel<<<B, block_threads(S), smem, stream>>>(em, skip, alpha,
+                                                              T, B, S);
   return cudaGetLastError();
+}
+
+template <int kDepth, int kHalo>
+cudaError_t launch_shard_forward_kernel(
+    const float* em, const unsigned char* skip, const int* inlen,
+    const int* tgt, const float* init0, const float* skip0, float* alpha,
+    float* final_out, float* boundary, int T, int B, int S, int em_stride,
+    int threads, size_t smem, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(
+      blank_shard_forward_kernel<kDepth, kHalo>);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  blank_shard_forward_kernel<kDepth, kHalo><<<B, threads, smem, stream>>>(
+      em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B, S,
+      em_stride);
+  return cudaGetLastError();
+}
+
+// The plan (depth, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::shard_forward_plan).  Rows of up to
+// kWarpsMaxWidth slots take the warps layout, with warps_threads(S)
+// threads and the ring and exchange rows in shared memory; wider rows take
+// the block layout, whose block holds the ring, the carried rows and the
+// skip mask.  A depth the kernels are not built for, or threads or shared
+// bytes that do not match the layout, are refused.
+cudaError_t launch_shard_forward(const float* em, const unsigned char* skip,
+                                 const int* inlen, const int* tgt,
+                                 const float* init0, const float* skip0,
+                                 float* alpha, float* final_out,
+                                 float* boundary, int T, int B, int S,
+                                 int em_stride, int depth, int threads,
+                                 int smem, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
+  const size_t bytes = static_cast<size_t>(smem);
+  const bool warps = S <= kWarpsMaxWidth;
+  const size_t want =
+      warps ? sizeof(float) * (static_cast<size_t>(depth) * threads + 2 * S)
+            : static_cast<size_t>(S) *
+                  (sizeof(float) * shard_forward_floats_per_cell(depth) + 1);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || bytes != want ||
+      (warps && threads != warps_threads(S))) {
+    return cudaErrorInvalidValue;
+  }
+  // the layout: 0 block, 1 one warp, 2 warps with halo lanes
+  const int layout = !warps ? 0 : (S <= 32 ? 1 : 2);
+  switch (depth * 4 + layout) {
+    case 8 * 4 + 0:
+      return launch_shard_forward_kernel<8, -1>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    case 8 * 4 + 1:
+      return launch_shard_forward_kernel<8, 0>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    case 8 * 4 + 2:
+      return launch_shard_forward_kernel<8, kWarpsHalo>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    case 2 * 4 + 0:
+      return launch_shard_forward_kernel<2, -1>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    case 2 * 4 + 1:
+      return launch_shard_forward_kernel<2, 0>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    case 2 * 4 + 2:
+      return launch_shard_forward_kernel<2, kWarpsHalo>(
+          em, skip, inlen, tgt, init0, skip0, alpha, final_out, boundary, T, B,
+          S, em_stride, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_backward(const float* alpha, const unsigned char* skip,
@@ -521,8 +911,7 @@ extern "C" {
 cudaError_t blank_lattice_forward(const float* em, const unsigned char* skip,
                                   float* alpha, int T, int B, int S,
                                   cudaStream_t stream) {
-  return launch_forward<false>(em, skip, nullptr, nullptr, alpha, T, B, S,
-                               stream);
+  return launch_forward(em, skip, alpha, T, B, S, stream);
 }
 
 cudaError_t blank_lattice_backward(const float* alpha,
@@ -534,12 +923,20 @@ cudaError_t blank_lattice_backward(const float* alpha,
                          stream);
 }
 
-// One T-shard: init0 / skip0 are [B, S] init rows.
+// One T-shard: inlen is shard-local, init0 / skip0 are the [B, S] init
+// rows; writes alpha [T, B, S], final [B] and the boundary row [B, S].  em
+// is read with em_stride floats between its rows (samples contiguous);
+// depth, threads and smem are the wrapper's plan.
 cudaError_t blank_shard_forward(const float* em, const unsigned char* skip,
+                                const int* inlen, const int* tgt,
                                 const float* init0, const float* skip0,
-                                float* alpha, int T, int B, int S,
-                                cudaStream_t stream) {
-  return launch_forward<true>(em, skip, init0, skip0, alpha, T, B, S, stream);
+                                float* alpha, float* final_out,
+                                float* boundary, int T, int B, int S,
+                                int em_stride, int depth, int threads,
+                                int smem, cudaStream_t stream) {
+  return launch_shard_forward(em, skip, inlen, tgt, init0, skip0, alpha,
+                              final_out, boundary, T, B, S, em_stride, depth,
+                              threads, smem, stream);
 }
 
 // One T-shard: inlen is shard-local, final_bar the cotangent of the final

@@ -20,6 +20,34 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
                : "memory");
 }
 
+// The shared-window address of a pointer into shared memory, converted
+// once (volatile, so that a loop does not convert it again at every copy or
+// read through it).
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  unsigned a;
+  asm volatile(
+      "{\n .reg .u64 t;\n cvta.to.shared.u64 t, %1;\n"
+      " cvt.u32.u64 %0, t;\n}\n"
+      : "=r"(a)
+      : "l"(p));
+  return a;
+}
+
+// One 4-byte asynchronous copy to a shared-window address.
+__device__ __forceinline__ void copy4(unsigned dst_s, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst_s),
+               "l"(src)
+               : "memory");
+}
+
+// A 4-byte load from a shared-window address, kept after the waits before
+// it.
+__device__ __forceinline__ float load(unsigned src_s) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(src_s) : "memory");
+  return v;
+}
+
 // Close this thread's uncommitted copies into one group.
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

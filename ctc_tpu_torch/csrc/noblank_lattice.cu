@@ -22,17 +22,53 @@
 // the write of the next row.  Row reads and writes of [t, b, :] are
 // contiguous in l, so every warp's access is coalesced.  Many samples (B
 // blocks, ~10 resident per SM at L=157) are in flight at once, which is
-// what hides each step's load latency.  Numerics follow the JAX package: the -1e13 sentinel, a sentinel
-// advance at t=0, logaddexp as max + log1p(exp(-|a-b|)), the outside mask
-// applied before the emission add, and sigmoid branch weights in the
-// backward (degenerate lattices need the exact 1/2, 1/2 split).
+// what hides each step's load latency.  Numerics follow the JAX package:
+// the -1e13 sentinel, a sentinel advance at t=0, logaddexp as max +
+// log1p(exp(-|a-b|)), the outside mask applied before the emission add, and
+// sigmoid branch weights in the backward (degenerate lattices need the
+// exact 1/2, 1/2 split).
 //
-// The shard forward is the same loop with the lattice's two boundaries
-// handed in (kShard = true): the carry starts from the row stay0[b] instead
-// of the l = 0 init, and the advance source of local t = 0 is the row
-// adv0[b] (shifted; there is no t > 0 gate).  On shard 0 the pipeline
-// passes the l = 0 init as stay0 and the all-sentinel row as adv0, which
-// reproduces the whole-lattice kernel's t = 0 step exactly.
+// The shard forward (noblank_shard_forward_kernel<kDepth, kHalo>, entry
+// noblank_shard_forward; replaces lattice_pallas.py:_forward_kernel_boundary)
+// runs one T-shard from the lattice's two boundaries: the carry starts from
+// the row stay0[b] and the advance source of local t = 0 is the row adv0[b]
+// (shifted; no t > 0 gate).  The same launch writes the shard's outputs,
+// final[b] = alpha[inlen-1, b, clamp(tgt-1)] (0 unless 1 <= inlen <= T) and
+// the boundary row alpha[T-1, b], which torch ops gathered and copied
+// before, and it reads the pipeline's batch slice of em in place through
+// its row stride (no contiguous copy).  What binds it is not bytes (0.08
+// and 0.24 us of bound at [16, 32, 64] and [1024, 4, 24]) but T dependent
+// steps, one block per sample.  The earlier kernel (the whole-lattice loop
+// under a shard flag) took ~505-540 SM cycles a step at the 1980 MHz the
+// card ran (python -m ctc_tpu_torch.probes.shard_sweep --pass forward
+// --parent DIR): its em load was already off the chain (the SASS issues it
+// first in the step and adds it last), and the log-add's ~30 dependent
+// instructions, the shared-memory round trip and the barrier made the step.
+// So this kernel takes the carried row out of shared memory:
+//   - the warps layout, rows of up to kWarpsMaxWidth = 768 cells: one lane
+//     a cell, the carried cell in a register, the advance source from the
+//     lane before by __shfl_up_sync, no barrier in a step.  A row of up to
+//     32 cells is one warp (kHalo 0).  A wider row takes warps that own 24
+//     cells each and carry the kHalo = 8 cells before them in their first
+//     lanes; those go stale one lane a step and are refreshed from their
+//     owners every 8 steps through shared memory, with one barrier.
+//   - em staged on a per-thread cp.async ring, kDepth - 1 steps ahead: each
+//     thread copies and reads only its column of a [kDepth][threads] ring,
+//     so its own wait makes the cell visible (no barrier for em).  The ring
+//     is addressed by a shared-window address taken once: converting the
+//     pointer in the step put an S2UR of the CTA id on the step's path.
+//   - step 0 and the last step are peeled: the init rows come into
+//     registers with the first group, and the boundary row leaves from them.
+//   - rows wider than 768 cells take the block layout: a block across the
+//     row, the carried row in a shared double buffer, the ring in shared
+//     rows, one barrier a step (no rows that wide are on the seq path).
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; python -m
+// ctc_tpu_torch.probes.shard_ab, median of 5 profiler windows): 5.02 us at
+// [16, 32, 64] in three warps (5.48 before) and 0.1713 ms at [1024, 4, 24]
+// in one (0.2721 before): 466 and 332 cycles a step.  A step now is the
+// shuffle, the log-add chain, the ring read and the store (dropping the
+// store saves 5-12%, python -m ctc_tpu_torch.probes.shard_sweep --pass
+// forward), and in a wider row the refresh.
 //
 // The shard backward (noblank_shard_backward_kernel) adds the cotangent of
 // the outgoing boundary row, g_seed[b], at the last local row, injects the
@@ -104,12 +140,8 @@ __device__ __forceinline__ float sigmoid(float x) {
 // alpha[t, b, l] = em[t, b, l]
 //     + (l >= tgt[b] ? -1e13 : logaddexp(alpha[t-1, b, l], alpha[t-1, b, l-1]))
 // with alpha(-1) = 0 at l = 0 and the sentinel elsewhere; no advance at t=0.
-// kShard: alpha(-1) = stay0[b], and the advance source at t = 0 is adv0[b].
-template <bool kShard>
 __global__ void noblank_forward_kernel(const float* __restrict__ em,
                                        const int* __restrict__ tgt,
-                                       const float* __restrict__ stay0,
-                                       const float* __restrict__ adv0,
                                        float* __restrict__ alpha, int T, int B,
                                        int L) {
   extern __shared__ float rows[];  // [2][L]
@@ -120,11 +152,7 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
   float* alpha_b = alpha + static_cast<size_t>(b) * L;
 
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    if constexpr (kShard) {
-      rows[l] = stay0[static_cast<size_t>(b) * L + l];
-    } else {
-      rows[l] = (l == 0) ? 0.0f : kNegSentinel;
-    }
+    rows[l] = (l == 0) ? 0.0f : kNegSentinel;
   }
   __syncthreads();
   for (int t = 0; t < T; ++t) {
@@ -135,14 +163,7 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
     for (int l = threadIdx.x; l < L; l += blockDim.x) {
       const float e = em_t[l];
       const float stay = cur[l];
-      float adv = kNegSentinel;
-      if (l > 0) {
-        if (t > 0) {
-          adv = cur[l - 1];
-        } else if constexpr (kShard) {
-          adv = adv0[static_cast<size_t>(b) * L + l - 1];
-        }
-      }
+      const float adv = (l > 0 && t > 0) ? cur[l - 1] : kNegSentinel;
       float lse = logaddexp(stay, adv);
       if (l >= tgt_b) lse = kNegSentinel;
       const float a = lse + e;
@@ -150,6 +171,285 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
       nxt[l] = a;
     }
     __syncthreads();
+  }
+}
+
+// Shared memory of the shard forward, in floats per lattice cell l: the
+// carried alpha double buffer and the em ring of kDepth rows.
+__host__ __device__ constexpr int shard_forward_floats_per_cell(int depth) {
+  return 2 + depth;
+}
+
+// A compile-time flag passed to the step lambdas (which step is peeled).
+template <bool kValue>
+struct Flag {
+  static constexpr bool value = kValue;
+};
+
+// The warps layout of the shard forward (rows of up to kWarpsMaxWidth
+// cells): one lane per cell.  A row of up to 32 cells is one warp.  A wider
+// row takes 32-lane warps of which warp w owns the kOwn = 32 - kWarpsHalo cells
+// from w * kOwn on, and carries the kWarpsHalo cells before them (the last ones
+// of warp w-1) in its first lanes.
+constexpr int kWarpsHalo = 8;
+constexpr int kOwn = 32 - kWarpsHalo;
+constexpr int kWarpsMaxWidth = 32 * kOwn;  // 32 warps of a 1024-thread block
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The threads of the warps layout at width L.
+__host__ __device__ constexpr int warps_threads(int L) {
+  return L <= 32 ? 32 : 32 * ((L + kOwn - 1) / kOwn);
+}
+
+// The shard forward of noblank_shard_forward_block (below) in the warps
+// layout.  Each lane keeps its cell of the carried row in a register and
+// takes its advance source from the lane before it by __shfl_up_sync, so a
+// step has no barrier and no shared-memory row: the shuffle, the log-add,
+// the mask, the add and the store.  A warp's first lane has no source in
+// the warp, so after j steps its first j lanes are stale; the halo lanes
+// are refreshed from their owners' registers every kHalo steps, through
+// shared memory and one barrier (none in a one-warp row).  em comes through
+// the per-thread cp.async ring (kDepth slots a thread); the init rows come
+// into registers with the first group.  Only a cell's owner stores it; the
+// final cell goes through shared memory to thread 0.
+template <int kDepth, int kHalo>
+__device__ __forceinline__ void noblank_shard_forward_warps(
+    const float* __restrict__ em, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, const float* __restrict__ stay0,
+    const float* __restrict__ adv0, float* __restrict__ alpha,
+    float* __restrict__ final_out, float* __restrict__ boundary, int T, int B,
+    int L, int em_stride) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  __shared__ float fin;  // alpha at the final cell
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int l = (tid >> 5) * (32 - kHalo) - kHalo + lane;  // this lane's cell
+  const bool real = l >= 0 && l < L;
+  const bool owner = real && lane >= kHalo;
+  const int b = blockIdx.x;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const bool fin_cell = owner && l == min(max(tgt_b - 1, 0), L - 1);
+  const bool outside = l >= tgt_b;
+  const size_t b_off = static_cast<size_t>(b) * L;
+  const size_t row_stride = static_cast<size_t>(B) * L;
+
+  // the next unstaged step's em cell of this thread -> its ring slot (this
+  // thread's column of the [kDepth][nt] ring, slot bytes apart)
+  const unsigned ring_s = cp_async::shared_address(smem + tid);
+  const unsigned slot = 4 * nt;
+  const float* src = em + b_off + l;
+  int staged = 0;
+  auto stage = [&]() {
+    if (staged < T) {
+      if (real) cp_async::copy4(ring_s + (staged & (kDepth - 1)) * slot, src);
+      src += em_stride;
+    }
+    cp_async::commit();
+    ++staged;
+  };
+
+  // the carried cell, and step 0's advance source adv0[b, l-1]
+  float a = real ? stay0[b_off + l] : kNegSentinel;
+  const float adv_first = (real && l > 0) ? adv0[b_off + l - 1] : kNegSentinel;
+  float* out = alpha + b_off + l;
+  auto step = [&](int t, auto first, auto last) {
+    float adv;
+    if constexpr (decltype(first)::value) {
+      adv = adv_first;
+    } else {
+      const float left = __shfl_up_sync(kFullMask, a, 1);
+      adv = (l > 0) ? left : kNegSentinel;
+    }
+    const float e = cp_async::load(ring_s + (t & (kDepth - 1)) * slot);
+    if (real) {
+      float lse = logaddexp(a, adv);
+      if (outside) lse = kNegSentinel;
+      a = lse + e;
+      if (owner) {
+        *out = a;
+        if (t == t_fin && fin_cell) fin = a;
+        if constexpr (decltype(last)::value) boundary[b_off + l] = a;
+      }
+    }
+    out += row_stride;
+  };
+
+  // after step t: every kHalo steps, the halo lanes from their owners
+  int refresh = kHalo;  // steps until the halo lanes go stale
+  int buf = 0;
+  auto after = [&](int t) {
+    if (kHalo > 0 && --refresh == 0 && t + 1 < T) {
+      refresh = kHalo;
+      // the owners' cells, in one of two rows: one barrier a refresh
+      float* x = smem + kDepth * nt + buf * L;
+      buf ^= 1;
+      if (owner) x[l] = a;
+      __syncthreads();
+      if (real && !owner) a = x[l];
+    }
+  };
+
+  // groups 0 .. kDepth-1: steps 0 .. kDepth-1; each later step stages one
+  // more, into the slot the step before it read
+  for (int k = 0; k < kDepth; ++k) stage();
+  cp_async::wait<kDepth - 1>();  // step 0's group has landed
+  if (T == 1) {
+    step(0, Flag<true>{}, Flag<true>{});
+  } else {
+    step(0, Flag<true>{}, Flag<false>{});
+  }
+  after(0);
+  for (int t = 1; t < T - 1; ++t) {
+    stage();
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    step(t, Flag<false>{}, Flag<false>{});
+    after(t);
+  }
+  if (T > 1) {
+    stage();
+    cp_async::wait<kDepth - 1>();
+    step(T - 1, Flag<false>{}, Flag<true>{});
+  }
+  __syncthreads();  // publishes fin
+  if (tid == 0) final_out[b] = (t_fin >= 0) ? fin : 0.0f;
+}
+
+// One T-shard's forward: the recursion above from the init rows, with the
+// shard's epilogue in the same launch:
+//   alpha(-1) = stay0[b]; the advance source of local t = 0 is adv0[b]
+//   (shifted, no t > 0 gate), the carry at every later step;
+//   final[b] = alpha[inlen[b]-1, b, clamp(tgt[b]-1)], 0 unless 1 <= inlen[b]
+//   <= T (inlen is shard-local);  boundary[b] = alpha[T-1, b].
+// em [T, B, L] is read through its row stride em_stride (floats between
+// em[t, b] and em[t+1, b]); rows and samples are contiguous.
+//
+// Each thread owns the cells l = tid, tid + nt, ... for the whole shard,
+// and stages exactly those cells of em into a ring of kDepth rows in shared
+// memory, kDepth - 1 steps ahead: one cp.async group per step (empty past
+// T, so the count stays uniform), waited for with an immediate.  Its own
+// wait makes its own copies visible, so em needs no barrier; the step's
+// __syncthreads orders a slot's reuse.  Group 0 also brings stay0[b, l]
+// into the carry row and adv0[b, l-1] into the other row at l, so step 0
+// (peeled) reads only this thread's copies; the last step (peeled) writes
+// the boundary row from registers.  The final cell's value goes through
+// shared memory at its step's barrier; thread 0 writes final[b].
+template <int kDepth>
+__device__ __forceinline__ void noblank_shard_forward_block(
+    const float* __restrict__ em, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, const float* __restrict__ stay0,
+    const float* __restrict__ adv0, float* __restrict__ alpha,
+    float* __restrict__ final_out, float* __restrict__ boundary, int T, int B,
+    int L, int em_stride) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  float* rows = smem;          // [2][L] carried alpha
+  float* ring = rows + 2 * L;  // [kDepth][L] em, step t in slot t % kDepth
+  __shared__ float fin;        // alpha at the final cell
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int l_fin = min(max(tgt_b - 1, 0), L - 1);
+  const size_t b_off = static_cast<size_t>(b) * L;
+  const size_t row_stride = static_cast<size_t>(B) * L;
+
+  // the next unstaged step's em cells of this thread -> its ring slot
+  const float* src = em + b_off;
+  int staged = 0;
+  auto stage = [&]() {
+    if (staged < T) {
+      float* slot = ring + (staged & (kDepth - 1)) * L;
+      for (int l = tid; l < L; l += nt) cp_async::copy4(slot + l, src + l);
+      src += em_stride;
+    }
+    cp_async::commit();
+    ++staged;
+  };
+
+  float* alpha_t = alpha + b_off;
+  auto step = [&](int t, auto first, auto last) {
+    const float* cur = rows + (t & 1) * L;
+    float* nxt = rows + ((t + 1) & 1) * L;
+    const float* e_t = ring + (t & (kDepth - 1)) * L;
+    for (int l = tid; l < L; l += nt) {
+      const float e = e_t[l];
+      const float stay = cur[l];
+      float adv;
+      if constexpr (decltype(first)::value) {
+        adv = (l > 0) ? nxt[l] : kNegSentinel;  // adv0[b, l-1], staged
+      } else {
+        adv = (l > 0) ? cur[l - 1] : kNegSentinel;
+      }
+      float lse = logaddexp(stay, adv);
+      if (l >= tgt_b) lse = kNegSentinel;
+      const float a = lse + e;
+      alpha_t[l] = a;
+      nxt[l] = a;
+      if (t == t_fin && l == l_fin) fin = a;
+      if constexpr (decltype(last)::value) boundary[b_off + l] = a;
+    }
+    alpha_t += row_stride;
+  };
+
+  // group 0: step 0's em and the init rows; then steps 1 .. kDepth-2
+  for (int l = tid; l < L; l += nt) {
+    cp_async::copy4(rows + l, stay0 + b_off + l);
+    if (l > 0) cp_async::copy4(rows + L + l, adv0 + b_off + l - 1);
+  }
+  for (int s = 0; s + 1 < kDepth; ++s) stage();
+  cp_async::wait<kDepth - 2>();  // group 0 has landed
+  if (T == 1) {
+    step(0, Flag<true>{}, Flag<true>{});
+  } else {
+    step(0, Flag<true>{}, Flag<false>{});
+  }
+  __syncthreads();
+  stage();  // step kDepth-1, into slot kDepth-1
+  for (int t = 1; t < T - 1; ++t) {
+    stage();                      // step t + kDepth-1, into step t-1's slot
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    step(t, Flag<false>{}, Flag<false>{});
+    __syncthreads();
+  }
+  if (T > 1) {
+    stage();
+    cp_async::wait<kDepth - 1>();
+    step(T - 1, Flag<false>{}, Flag<true>{});
+    __syncthreads();  // publishes fin
+  }
+  if (tid == 0) final_out[b] = (t_fin >= 0) ? fin : 0.0f;
+}
+
+// The shard forward kernel: the warps layout (kHalo halo lanes a warp:
+// 0 for a one-warp row, kWarpsHalo for wider ones) for rows of up to
+// kWarpsMaxWidth cells, else the block layout (kHalo -1).
+template <int kDepth, int kHalo>
+__global__ void __launch_bounds__(1024)
+    noblank_shard_forward_kernel(const float* __restrict__ em,
+                                 const int* __restrict__ inlen,
+                                 const int* __restrict__ tgt,
+                                 const float* __restrict__ stay0,
+                                 const float* __restrict__ adv0,
+                                 float* __restrict__ alpha,
+                                 float* __restrict__ final_out,
+                                 float* __restrict__ boundary, int T, int B,
+                                 int L, int em_stride) {
+  if constexpr (kHalo >= 0) {
+    noblank_shard_forward_warps<kDepth, kHalo>(em, inlen, tgt, stay0, adv0,
+                                               alpha, final_out, boundary, T,
+                                               B, L, em_stride);
+  } else {
+    noblank_shard_forward_block<kDepth>(em, inlen, tgt, stay0, adv0, alpha,
+                                        final_out, boundary, T, B, L,
+                                        em_stride);
   }
 }
 
@@ -220,7 +520,7 @@ __host__ __device__ constexpr int shard_floats_per_cell(int chunk) {
   return 2 * chunk + 2 * chunk + 2 + 1 + 2 + 2;
 }
 
-// One T-shard's reverse recursion (the recursion above with kShard's
+// One T-shard's reverse recursion (the recursion above with the shard's
 // boundaries: inject = +bar[b], g_seed[b] added at t = T-1), and the
 // gradients of both init rows, in one launch:
 //   d_stay0[b, l] = g[0, l] * w_stay(-1, l)
@@ -379,18 +679,89 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <bool kShard>
-cudaError_t launch_forward(const float* em, const int* tgt, const float* stay0,
-                           const float* adv0, float* alpha, int T, int B,
-                           int L, cudaStream_t stream) {
+cudaError_t launch_forward(const float* em, const int* tgt, float* alpha,
+                           int T, int B, int L, cudaStream_t stream) {
   if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
   const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
-  cudaError_t err = prepare(
-      reinterpret_cast<const void*>(noblank_forward_kernel<kShard>), smem);
+  cudaError_t err =
+      prepare(reinterpret_cast<const void*>(noblank_forward_kernel), smem);
   if (err != cudaSuccess) return err;
-  noblank_forward_kernel<kShard><<<B, block_threads(L), smem, stream>>>(
-      em, tgt, stay0, adv0, alpha, T, B, L);
+  noblank_forward_kernel<<<B, block_threads(L), smem, stream>>>(em, tgt,
+                                                                alpha, T, B,
+                                                                L);
   return cudaGetLastError();
+}
+
+template <int kDepth, int kHalo>
+cudaError_t launch_shard_forward_kernel(
+    const float* em, const int* inlen, const int* tgt, const float* stay0,
+    const float* adv0, float* alpha, float* final_out, float* boundary,
+    int T, int B, int L, int em_stride, int threads, size_t smem,
+    cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(
+      noblank_shard_forward_kernel<kDepth, kHalo>);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  noblank_shard_forward_kernel<kDepth, kHalo><<<B, threads, smem, stream>>>(
+      em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+      em_stride);
+  return cudaGetLastError();
+}
+
+// The plan (depth, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::shard_forward_plan).  Rows of up to
+// kWarpsMaxWidth cells take the warps layout, with warps_threads(L)
+// threads and the ring and exchange rows in shared memory; wider rows take
+// the block layout, whose block holds the ring and the carried rows.  A
+// depth the kernels are not built for, or threads or shared bytes that do
+// not match the layout, are refused.
+cudaError_t launch_shard_forward(const float* em, const int* inlen,
+                                 const int* tgt, const float* stay0,
+                                 const float* adv0, float* alpha,
+                                 float* final_out, float* boundary, int T,
+                                 int B, int L, int em_stride, int depth,
+                                 int threads, int smem, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
+  const size_t bytes = static_cast<size_t>(smem);
+  const bool warps = L <= kWarpsMaxWidth;
+  const size_t want =
+      warps ? sizeof(float) * (static_cast<size_t>(depth) * threads + 2 * L)
+            : sizeof(float) * static_cast<size_t>(L) *
+                  shard_forward_floats_per_cell(depth);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || bytes != want ||
+      (warps && threads != warps_threads(L))) {
+    return cudaErrorInvalidValue;
+  }
+  // the layout: 0 block, 1 one warp, 2 warps with halo lanes
+  const int layout = !warps ? 0 : (L <= 32 ? 1 : 2);
+  switch (depth * 4 + layout) {
+    case 8 * 4 + 0:
+      return launch_shard_forward_kernel<8, -1>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    case 8 * 4 + 1:
+      return launch_shard_forward_kernel<8, 0>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    case 8 * 4 + 2:
+      return launch_shard_forward_kernel<8, kWarpsHalo>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    case 2 * 4 + 0:
+      return launch_shard_forward_kernel<2, -1>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    case 2 * 4 + 1:
+      return launch_shard_forward_kernel<2, 0>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    case 2 * 4 + 2:
+      return launch_shard_forward_kernel<2, kWarpsHalo>(
+          em, inlen, tgt, stay0, adv0, alpha, final_out, boundary, T, B, L,
+          em_stride, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_backward(const float* alpha, const int* inlen,
@@ -464,8 +835,7 @@ extern "C" {
 cudaError_t noblank_lattice_forward(const float* em, const int* tgt,
                                     float* alpha, int T, int B, int L,
                                     cudaStream_t stream) {
-  return launch_forward<false>(em, tgt, nullptr, nullptr, alpha, T, B, L,
-                               stream);
+  return launch_forward(em, tgt, alpha, T, B, L, stream);
 }
 
 cudaError_t noblank_lattice_backward(const float* alpha, const int* inlen,
@@ -475,12 +845,20 @@ cudaError_t noblank_lattice_backward(const float* alpha, const int* inlen,
   return launch_backward(alpha, inlen, tgt, nll_bar, g, T, B, L, stream);
 }
 
-// One T-shard: stay0 / adv0 are [B, L] init rows.
-cudaError_t noblank_shard_forward(const float* em, const int* tgt,
-                                  const float* stay0, const float* adv0,
-                                  float* alpha, int T, int B, int L,
+// One T-shard: inlen is shard-local, stay0 / adv0 are the [B, L] init
+// rows; writes alpha [T, B, L], final [B] and the boundary row [B, L].  em
+// is read with em_stride floats between its rows (samples contiguous);
+// depth, threads and smem are the wrapper's plan.
+cudaError_t noblank_shard_forward(const float* em, const int* inlen,
+                                  const int* tgt, const float* stay0,
+                                  const float* adv0, float* alpha,
+                                  float* final_out, float* boundary, int T,
+                                  int B, int L, int em_stride, int depth,
+                                  int threads, int smem,
                                   cudaStream_t stream) {
-  return launch_forward<true>(em, tgt, stay0, adv0, alpha, T, B, L, stream);
+  return launch_shard_forward(em, inlen, tgt, stay0, adv0, alpha, final_out,
+                              boundary, T, B, L, em_stride, depth, threads,
+                              smem, stream);
 }
 
 // One T-shard: inlen is shard-local, final_bar the cotangent of the final

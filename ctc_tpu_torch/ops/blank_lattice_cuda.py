@@ -31,8 +31,10 @@ source of the first local step.  :func:`blank_shard_lattice_cuda` and
 :func:`blank_shard_lattice_plain` return ``(final [B], boundary_out [B, S])``:
 the final log-prob (the log-add of the two final cells at local
 ``inlen - 1``, 0 unless ``1 <= inlen_local <= t_s``) and the last alpha row.
-The whole lattice is the shard whose init rows are :func:`blank_alpha_init`
-and the sentinel row.
+The shard forward kernel writes both beside alpha and reads a batch slice of
+em in place; its plain version :func:`blank_shard_forward_plain` returns the
+same triple.  The whole lattice is the shard whose init rows are
+:func:`blank_alpha_init` and the sentinel row.
 """
 
 from __future__ import annotations
@@ -41,9 +43,12 @@ import torch
 
 from ctc_tpu_torch.ops.lattice_cuda import (
     _require,
+    _require_rows,
     _to_tbl,
     launch,
+    rows_layout,
     shard_backward_plan,
+    shard_forward_plan,
     validate_rows,
 )
 from ctc_tpu_torch.ops.logspace import BLANK_NEG
@@ -145,6 +150,17 @@ def gather_nll(alpha, input_lengths, target_lengths):
     return -gather_final(alpha, input_lengths, target_lengths)
 
 
+def blank_shard_forward_plain(em, skip_ok, input_lengths, target_lengths,
+                              init0, skip0):
+    """``(alpha [t_s, B, S], final [B], boundary [B, S])`` of one T-shard:
+    the recursion from the init rows, :func:`gather_final` with the
+    shard-local ``input_lengths``, and the last alpha row (the kernel's
+    three outputs)."""
+    alpha = blank_shard_alpha_plain(em, skip_ok, init0, skip0)
+    return (alpha, gather_final(alpha, input_lengths, target_lengths),
+            alpha[-1].clone())
+
+
 def _inject_row(alpha, input_lengths, target_lengths, bar):
     """``d(final * bar) / d alpha`` at row ``input_length - 1``: the bar
     times the softmax of the two final cells, ``[B, S]``."""
@@ -235,14 +251,25 @@ def blank_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
                   torch.empty_like(alpha), alpha.shape)
 
 
-def blank_shard_alpha_kernel(em, skip_ok, init0, skip0):
-    """Launch the shard forward kernel: alpha ``[t_s, B, S]`` from em, the
-    skip mask and the ``[B, S]`` init rows."""
-    _require("blank_shard_forward", em=em, skip_ok=skip_ok, init0=init0,
-             skip0=skip0)
+def blank_shard_forward_kernel(em, skip_ok, input_lengths, target_lengths,
+                               init0, skip0):
+    """Launch the shard forward kernel: ``(alpha [t_s, B, S], final [B],
+    boundary [B, S])`` from em, the skip mask and the ``[B, S]`` init rows,
+    as :func:`blank_shard_forward_plain` computes them.  em is read in
+    place through its row stride (see
+    :func:`~ctc_tpu_torch.ops.lattice_cuda.rows_layout`)."""
+    t_s, batch, width = em.shape
+    plan = shard_forward_plan(width, blank=True)
+    _require_rows("blank_shard_forward", em)
+    _require("blank_shard_forward", skip_ok=skip_ok,
+             input_lengths=input_lengths, target_lengths=target_lengths,
+             init0=init0, skip0=skip0)
+    alpha = torch.empty((t_s, batch, width), device=em.device)
     return launch(_SOURCE, "blank_shard_forward", launch_counts,
-                  (em, skip_ok, init0, skip0), torch.empty_like(em),
-                  em.shape)
+                  (em, skip_ok, input_lengths, target_lengths, init0, skip0),
+                  (alpha, torch.empty((batch,), device=em.device),
+                   torch.empty_like(init0)),
+                  (t_s, batch, width, em.stride(0), *plan))
 
 
 def blank_shard_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
@@ -357,16 +384,18 @@ class BlankShardLattice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, em, init0, skip0, skip_ok, input_lengths,
                 target_lengths, use_kernel):
-        em, init0, skip0 = em.contiguous(), init0.contiguous(), skip0.contiguous()
+        init0, skip0 = init0.contiguous(), skip0.contiguous()
         if use_kernel:
-            alpha = blank_shard_alpha_kernel(em, skip_ok, init0, skip0)
+            alpha, final, boundary = blank_shard_forward_kernel(
+                rows_layout(em), skip_ok, input_lengths, target_lengths,
+                init0, skip0)
         else:
-            alpha = blank_shard_alpha_plain(em, skip_ok, init0, skip0)
+            alpha, final, boundary = blank_shard_forward_plain(
+                em, skip_ok, input_lengths, target_lengths, init0, skip0)
         ctx.save_for_backward(alpha, init0, skip0, skip_ok, input_lengths,
                               target_lengths)
         ctx.use_kernel = use_kernel
-        final = gather_final(alpha, input_lengths, target_lengths)
-        return final, alpha[-1].clone()
+        return final, boundary
 
     @staticmethod
     def backward(ctx, final_bar, boundary_bar):

@@ -37,8 +37,9 @@ SIGNATURES = {
         "noblank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
         # alpha, inlen, tgt, nll_bar, g, T, B, L, stream
         "noblank_lattice_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-        # em, tgt, stay0, adv0, alpha, T, B, L, stream
-        "noblank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # em, inlen, tgt, stay0, adv0, alpha, final, boundary, T, B, L,
+        # em row stride, depth, threads, shared bytes, stream
+        "noblank_shard_forward": (*(_P,) * 8, *(_I,) * 7, _P),
         # alpha, inlen, tgt, final_bar, g_seed, stay0, adv0, g, d_stay0,
         # d_adv0, T, B, L, chunk, threads, shared bytes, stream
         "noblank_shard_backward": (*(_P,) * 10, *(_I,) * 6, _P),
@@ -48,8 +49,9 @@ SIGNATURES = {
         "blank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
         # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, stream
         "blank_lattice_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-        # em, skip_ok, init0, skip0, alpha, T, B, S, stream
-        "blank_shard_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # em, skip_ok, inlen, tgt, init0, skip0, alpha, final, boundary, T,
+        # B, S, em row stride, depth, threads, shared bytes, stream
+        "blank_shard_forward": (*(_P,) * 9, *(_I,) * 7, _P),
         # alpha, skip_ok, inlen, tgt, final_bar, g_seed, init0, skip0, g,
         # d_init0, d_skip0, T, B, S, chunk, threads, shared bytes, stream
         "blank_shard_backward": (*(_P,) * 11, *(_I,) * 6, _P),

@@ -24,8 +24,11 @@ boundaries handed in: ``stay0`` seeds the carry and ``adv0`` is the advance
 source of the first local step.  :func:`noblank_shard_lattice_cuda` and
 :func:`noblank_shard_lattice_plain` return ``(final [B], boundary_out [B,
 L])``: the final log-prob ``alpha[inlen_local-1, b, tgt-1]`` (0 unless ``1 <=
-inlen_local <= t_s``) and the last alpha row.  The whole lattice is the shard
-whose init rows are :func:`noblank_alpha_init` and the sentinel row.
+inlen_local <= t_s``) and the last alpha row.  The shard forward kernel
+writes both beside alpha and reads a batch slice of em in place; its plain
+version :func:`noblank_shard_forward_plain` returns the same triple.  The
+whole lattice is the shard whose init rows are :func:`noblank_alpha_init`
+and the sentinel row.
 """
 
 from __future__ import annotations
@@ -49,6 +52,16 @@ SHARD_CHUNKS = (16, 4, 1)
 #: spread over all of it, and the kernel ran faster with more threads up
 #: to 512 (PERF.md, PR 6)
 SHARD_THREADS = 512
+#: the em ring depths (rows) the shard forward kernels are built for,
+#: deepest first
+SHARD_DEPTHS = (8, 2)
+#: static shared memory of the shard forward's block kernels (the final
+#: cells, as ptxas lays them out)
+SHARD_FORWARD_STATIC_BYTES = 16
+#: the halo lanes of the shard forward's warps layout (the kernels'
+#: kHalo), noblank and blank: a warp of a row wider than 32 cells owns
+#: 32 - halo cells and carries the halo before them
+WARPS_HALO = {False: 8, True: 16}
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +113,17 @@ def noblank_shard_alpha_plain(em, target_lengths, stay0, adv0):
         alpha = lse + em[t]
         rows.append(alpha)
     return torch.stack(rows)
+
+
+def noblank_shard_forward_plain(em, input_lengths, target_lengths, stay0,
+                                adv0):
+    """``(alpha [t_s, B, L], final [B], boundary [B, L])`` of one T-shard:
+    the recursion from the init rows, :func:`gather_final` with the
+    shard-local ``input_lengths``, and the last alpha row (the kernel's
+    three outputs)."""
+    alpha = noblank_shard_alpha_plain(em, target_lengths, stay0, adv0)
+    return (alpha, gather_final(alpha, input_lengths, target_lengths),
+            alpha[-1].clone())
 
 
 def noblank_grad_plain(alpha, input_lengths, target_lengths, nll_bar):
@@ -240,14 +264,103 @@ def noblank_grad_kernel(alpha, input_lengths, target_lengths, nll_bar):
                   torch.empty_like(alpha), alpha.shape)
 
 
-def noblank_shard_alpha_kernel(em, target_lengths, stay0, adv0):
-    """Launch the shard forward kernel: alpha ``[t_s, B, L]`` from em and
-    the ``[B, L]`` init rows."""
-    _require("noblank_shard_forward", em=em, target_lengths=target_lengths,
-             stay0=stay0, adv0=adv0)
+def shard_forward_threads(width: int, blank: bool = False) -> int | None:
+    """Threads of a shard forward kernel's warps layout at lattice width
+    ``width`` (one lane a cell: one warp up to 32 cells, else warps that
+    each own ``32 - halo`` cells, ``WARPS_HALO``), or None past
+    ``32 * (32 - halo)`` cells, where the block layout takes the row."""
+    own = 32 - WARPS_HALO[blank]
+    if width <= 32:
+        return 32
+    if width <= 32 * own:
+        return 32 * -(-width // own)
+    return None
+
+
+def shard_forward_bytes(width: int, depth: int, threads: int,
+                        blank: bool = False) -> int:
+    """Dynamic shared memory of a shard forward launch: in the warps
+    layout each thread's ``depth`` em ring slots and two exchange rows of
+    ``width`` floats; in the block layout, ``2 + depth`` rows of floats and
+    (blank) the skip mask's byte per cell (the kernels'
+    ``shard_forward_floats_per_cell``)."""
+    if shard_forward_threads(width, blank) is not None:
+        return 4 * (depth * threads + 2 * width)
+    return (4 * (2 + depth) + int(blank)) * width
+
+
+def shard_forward_plan(width: int,
+                       blank: bool = False) -> tuple[int, int, int]:
+    """``(depth, threads, shared bytes)`` of the noblank (``blank`` False)
+    or blank shard forward kernel at lattice width ``width``.
+
+    Rows of up to 768 cells (noblank) or 512 (blank) take the warps layout
+    (:func:`shard_forward_threads`) and an em ring 8 rows deep.  Wider rows
+    take the block layout: the row in whole warps, at most 1024 threads,
+    which stride over wider rows, and a ring ``depth`` rows deep, the
+    deepest of ``SHARD_DEPTHS`` that fits beside the carried rows and
+    ``SHARD_FORWARD_STATIC_BYTES`` of static shared memory in
+    ``SMEM_LIMIT`` (8 up to width 5810 noblank and 5669 blank, then 2).
+    Raises ``ValueError`` above the widths where a two-row ring does not fit
+    (14527 noblank, 13672 blank)."""
+    threads = shard_forward_threads(width, blank)
+    if threads is not None:
+        depth = SHARD_DEPTHS[0]
+        return depth, threads, shard_forward_bytes(width, depth, threads,
+                                                   blank)
+    threads = min(-(-width // 32) * 32, 1024)
+    for depth in SHARD_DEPTHS:
+        smem = shard_forward_bytes(width, depth, threads, blank)
+        if smem <= SMEM_LIMIT - SHARD_FORWARD_STATIC_BYTES:
+            return depth, threads, smem
+    raise ValueError(
+        f"lattice width {width}: the shard forward's carried rows and em "
+        f"ring do not fit in the {SMEM_LIMIT} bytes of shared memory a "
+        "block may use")
+
+
+def _rows_side_by_side(em) -> bool:
+    """Whether the rows ``em[t, b]`` of em ``[T, B, W]`` are contiguous and
+    lie side by side in ``b`` (a batch slice of a contiguous tensor)."""
+    _, batch, width = em.shape
+    return ((width == 1 or em.stride(2) == 1)
+            and (batch == 1 or em.stride(1) == width))
+
+
+def _require_rows(kernel: str, em) -> None:
+    """Raise unless em is a CUDA float32 tensor the shard forward kernels
+    read in place (rows side by side; the row stride is passed on)."""
+    if not (em.is_cuda and em.dtype == torch.float32):
+        raise ValueError(f"{kernel}: em must be a CUDA float32 tensor, got "
+                         f"{em.dtype} on {em.device}")
+    if not _rows_side_by_side(em):
+        raise ValueError(f"{kernel}: em's rows must be contiguous and side "
+                         f"by side, got strides {em.stride()}")
+
+
+def rows_layout(em):
+    """em as the shard forward kernels read it: itself where its rows are
+    side by side (the pipeline's batch slices), else a contiguous copy."""
+    return em if _rows_side_by_side(em) else em.contiguous()
+
+
+def noblank_shard_forward_kernel(em, input_lengths, target_lengths, stay0,
+                                 adv0):
+    """Launch the shard forward kernel: ``(alpha [t_s, B, L], final [B],
+    boundary [B, L])`` from em and the ``[B, L]`` init rows, as
+    :func:`noblank_shard_forward_plain` computes them.  em is read in place
+    through its row stride (see :func:`rows_layout`)."""
+    t_s, batch, width = em.shape
+    plan = shard_forward_plan(width)
+    _require_rows("noblank_shard_forward", em)
+    _require("noblank_shard_forward", input_lengths=input_lengths,
+             target_lengths=target_lengths, stay0=stay0, adv0=adv0)
+    alpha = torch.empty((t_s, batch, width), device=em.device)
     return launch(_SOURCE, "noblank_shard_forward", launch_counts,
-                  (em, target_lengths, stay0, adv0), torch.empty_like(em),
-                  em.shape)
+                  (em, input_lengths, target_lengths, stay0, adv0),
+                  (alpha, torch.empty((batch,), device=em.device),
+                   torch.empty_like(stay0)),
+                  (t_s, batch, width, em.stride(0), *plan))
 
 
 def shard_backward_plan(width: int, weights: int,
@@ -404,16 +517,17 @@ class NoBlankShardLattice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, em, stay0, adv0, input_lengths, target_lengths,
                 use_kernel):
-        em, stay0, adv0 = em.contiguous(), stay0.contiguous(), adv0.contiguous()
+        stay0, adv0 = stay0.contiguous(), adv0.contiguous()
         if use_kernel:
-            alpha = noblank_shard_alpha_kernel(em, target_lengths, stay0, adv0)
+            alpha, final, boundary = noblank_shard_forward_kernel(
+                rows_layout(em), input_lengths, target_lengths, stay0, adv0)
         else:
-            alpha = noblank_shard_alpha_plain(em, target_lengths, stay0, adv0)
+            alpha, final, boundary = noblank_shard_forward_plain(
+                em, input_lengths, target_lengths, stay0, adv0)
         ctx.save_for_backward(alpha, stay0, adv0, input_lengths,
                               target_lengths)
         ctx.use_kernel = use_kernel
-        final = gather_final(alpha, input_lengths, target_lengths)
-        return final, alpha[-1].clone()
+        return final, boundary
 
     @staticmethod
     def backward(ctx, final_bar, boundary_bar):

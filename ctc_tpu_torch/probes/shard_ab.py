@@ -1,4 +1,4 @@
-"""Rows 4 and 8, the shard backward kernels, before and after their
+"""Rows 3 and 7, the shard forward kernels, before and after their
 redesign, side by side on one card.
 
     python -m ctc_tpu_torch.probes.shard_ab --parent DIR
@@ -7,23 +7,27 @@ redesign, side by side on one card.
 tar -x -C DIR``).  Its ``ctc_tpu_torch/csrc/noblank_lattice.cu`` and
 ``blank_lattice.cu`` are compiled with the flags of ``ops/cuda_build.py``
 into ``build/ctc_tpu_torch/parent/``, both at once, and their
-``*_shard_backward`` launchers called with that tree's arguments: the
-whole-lattice loop under ``kShard``, g only, the init rows' gradients left
-to the torch ops of ``init_row_grads``.  "after" is this package's kernel,
-which returns g and both init-row gradients from one launch.
+``*_shard_forward`` launchers called with that tree's arguments: alpha
+only, from a contiguous copy of em, with the final cell's gather and the
+boundary row's copy left to torch ops, as that tree's shard op ran them.
+"after" is this package's kernel, which reads the batch slice of em in
+place and returns alpha, the final cell and the boundary row from one
+launch.
 
 For each family at the seq main path's shard shape and the long-T one
-(``SHAPES``), it prints one JSON line per side: the kernel's device time
-from ``torch.profiler`` (the median of ``WINDOWS`` windows, taken twice in
-turns: before, after, after, before; each run's median and the min and
-max of its windows), ``step_us`` and, on the "after" line, max |dev| of g
-and both init-row gradients from the "before" side's.  Then one line per
-family and side of the seq train step at the main path's shape (T=64,
-B=256, 4 shards; noblank 8 microbatches, blank 4; the shard ops' backward
-done each way, the rest unchanged; 20 steps after 5 warm-up, in turns):
-host ms per step, and from a profiled window of the same steps, device ms
-per step, device kernels per step and the device's busy share.  The first
-line is the card's name and power limit.  Card only.
+(``SHAPES``; em the second of four microbatches of a wider batch, as the
+pipeline hands it in), it prints one JSON line per side: the kernel's
+device time from ``torch.profiler`` (the median of ``WINDOWS`` windows,
+taken twice in turns: before, after, after, before; each run's median and
+the min and max of its windows), ``step_us``, the device kernels a call
+launches and, on the "after" line, max |dev| of alpha, final and the
+boundary row from the "before" side's.  Then one line per family and side
+of the seq train step at the main path's shape (T=64, B=256, 4 shards;
+noblank 8 microbatches, blank 4; the shard ops' forward done each way, the
+rest unchanged; 20 steps after 5 warm-up, in turns): host ms per step,
+and from a profiled window of the same steps, device ms per step, device
+kernels per step and the device's busy share.  The first line is the
+card's name and power limit.  Card only.
 """
 
 from __future__ import annotations
@@ -58,22 +62,31 @@ CLASSES = {"noblank": 33, "blank": 157}  # the smoke's heads
 SHAPES = {"noblank": {"main_path": (16, 32, 64), "long_T": (1024, 4, 24)},
           "blank": {"main_path": (16, 64, 32), "long_T": (1024, 4, 24)}}
 STEP_SHAPE = {"noblank": (64, 256, 64, 8), "blank": (64, 256, 32, 4)}
+MICROBATCHES = 4  # em is the second of this many microbatches
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: the earlier tree's shard backward launchers: alpha, [skip_ok,] inlen,
-#: tgt, final_bar, g_seed, g, T, B, W, stream
-OLD_SIGNATURES = {"noblank": (*(_P,) * 6, _I, _I, _I, _P),
-                  "blank": (*(_P,) * 7, _I, _I, _I, _P)}
+#: the earlier tree's shard forward launchers: em, [skip_ok,] tgt or
+#: nothing, init rows, alpha, T, B, W, stream
+OLD_SIGNATURES = {"noblank": (*(_P,) * 5, _I, _I, _I, _P),
+                  "blank": (*(_P,) * 5, _I, _I, _I, _P)}
 
 
-def build_parent(parent: Path) -> dict[str, ctypes.CDLL]:
-    """Compile both lattice sources of ``parent``, one ``nvcc`` each, all
-    started together; return each family's library."""
+def build_parent(parent: Path, symbol="shard_forward", edit=None,
+                 tag="") -> dict[str, ctypes.CDLL]:
+    """Compile both lattice sources of ``parent`` (with ``edit(text,
+    family)`` applied, where given), one ``nvcc`` each, all started
+    together; return each family's library with its ``*_<symbol>``
+    launcher typed as ``OLD_SIGNATURES``."""
     PARENT_BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for family in OLD_SIGNATURES:
         src = parent / "ctc_tpu_torch" / "csrc" / f"{family}_lattice.cu"
-        out = PARENT_BUILD / f"{family}_lattice.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+        if edit is not None:
+            text = edit(src.read_text(), family)
+            src = PARENT_BUILD / f"{family}_lattice{tag}.cu"
+            src.write_text(text)
+        out = PARENT_BUILD / f"{family}_lattice{tag}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+               f"-I{parent / 'ctc_tpu_torch' / 'csrc'}", "-o", str(out),
                str(src)]
         procs[family] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -82,57 +95,68 @@ def build_parent(parent: Path) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's {family}:\n{log}")
-        fn = getattr(ctypes.CDLL(str(out)), f"{family}_shard_backward")
+        lib = ctypes.CDLL(str(out))
+        fn = getattr(lib, f"{family}_{symbol}")
         fn.argtypes = list(OLD_SIGNATURES[family])
         fn.restype = ctypes.c_int
-        libs[family] = fn
+        libs[family] = lib
     return libs
 
 
-def old_backward(family, fn):
-    """The earlier tree's backward of a shard op, with the package's
-    ``*_shard_grad_kernel`` arguments: its kernel for g, then
-    ``init_row_grads`` as torch ops."""
-    name = f"{family}_shard_backward"
+def old_forward(family, lib):
+    """The earlier tree's shard forward with the package's
+    ``*_shard_forward_kernel`` arguments and outputs: em copied to a
+    contiguous tensor, its kernel for alpha, then ``gather_final`` and the
+    boundary row's copy as torch ops."""
+    name = f"{family}_shard_forward"
+    fn = getattr(lib, name)
 
-    def launch(operands, alpha):
-        g = torch.empty_like(alpha)
-        stream = torch.cuda.current_stream(alpha.device).cuda_stream
-        _check(fn(*(t.data_ptr() for t in operands), g.data_ptr(),
-                  *alpha.shape, stream), name)
-        return g
+    def launch(operands, em):
+        alpha = torch.empty_like(em)
+        stream = torch.cuda.current_stream(em.device).cuda_stream
+        _check(fn(*(t.data_ptr() for t in operands), alpha.data_ptr(),
+                  *em.shape, stream), name)
+        return alpha
 
     if family == "noblank":
-        def grad(alpha, inlen, tgt, final_bar, g_seed, stay0, adv0):
-            g = launch((alpha, inlen, tgt, final_bar, g_seed), alpha)
-            return (g, *lc.init_row_grads(g[0], stay0, adv0, tgt))
+        def forward(em, inlen, tgt, stay0, adv0):
+            em = em.contiguous()
+            alpha = launch((em, tgt, stay0, adv0), em)
+            return (alpha, lc.gather_final(alpha, inlen, tgt),
+                    alpha[-1].clone())
     else:
-        def grad(alpha, skip, inlen, tgt, final_bar, g_seed, init0, skip0):
-            g = launch((alpha, skip, inlen, tgt, final_bar, g_seed), alpha)
-            return (g, *bl.init_row_grads(g[0], init0, skip0, skip))
-    return grad
+        def forward(em, skip, inlen, tgt, init0, skip0):
+            em = em.contiguous()
+            alpha = launch((em, skip, init0, skip0), em)
+            return (alpha, bl.gather_final(alpha, inlen, tgt),
+                    alpha[-1].clone())
+    return forward
 
 
 def make_case(family, shape, device, seed):
-    """The operands of one shard backward (as ``chip_smoke.py``'s random
-    case): alpha from the shard forward kernel, shard-local input lengths
-    below 1, inside the shard and above it, random init rows with
-    unreached cells at the sentinel, and both cotangents."""
+    """The operands of one shard (as ``chip_smoke.py``'s random case): em
+    the second of ``MICROBATCHES`` batch slices of a wider batch, shard-local
+    input lengths below 1, inside the shard and above it, random init rows
+    with unreached cells at the sentinel, and both cotangents.  Returns
+    ``(forward operands, backward operands but alpha)``: the arguments of
+    ``*_shard_forward_kernel`` and, after alpha, of
+    ``*_shard_grad_kernel``."""
     t_s, batch, labels = shape
+    wide = MICROBATCHES * batch
     gen = torch.Generator().manual_seed(seed)
     skip = None
     if family == "noblank":
         width, neg = labels, NEG_SENTINEL
-        em = torch.randn((t_s, batch, width), generator=gen) - 1.0
+        em = torch.randn((t_s, wide, width), generator=gen) - 1.0
         tgt = torch.randint(1, width + 1, (batch,), generator=gen)
     else:
         width, neg = 2 * labels + 1, BLANK_NEG
-        logits = torch.randn((t_s, batch, CLASSES["blank"]), generator=gen)
-        targets = torch.randint(1, CLASSES["blank"], (batch, labels),
+        logits = torch.randn((t_s, wide, CLASSES["blank"]), generator=gen)
+        targets = torch.randint(1, CLASSES["blank"], (wide, labels),
                                 generator=gen)
         em, skip = blank_emissions_and_skip(logits, targets, 0,
                                             normalize=True)
-        skip = skip.to(torch.uint8).to(device)
+        skip = skip[batch:2 * batch].to(torch.uint8).to(device)
         tgt = torch.randint(1, labels + 1, (batch,), generator=gen)
     inlen = torch.randint(-(t_s // 2), 2 * t_s + 1, (batch,), generator=gen)
     inlen[0] = t_s
@@ -142,14 +166,12 @@ def make_case(family, shape, device, seed):
     r1[::2, -2:] = neg
     final_bar = torch.randn((batch,), generator=gen)
     g_seed = torch.randn((batch, width), generator=gen)
-    em, r0, r1, final_bar, g_seed = (x.contiguous().to(device) for x in (
-        em, r0, r1, final_bar, g_seed))
+    em = em.to(device)[:, batch:2 * batch]
+    r0, r1, final_bar, g_seed = (x.contiguous().to(device) for x in (
+        r0, r1, final_bar, g_seed))
     inlen, tgt = inlen.int().to(device), tgt.int().to(device)
-    if family == "noblank":
-        alpha = lc.noblank_shard_alpha_kernel(em, tgt, r0, r1)
-        return (alpha, inlen, tgt, final_bar, g_seed, r0, r1)
-    alpha = bl.blank_shard_alpha_kernel(em, skip, r0, r1)
-    return (alpha, skip, inlen, tgt, final_bar, g_seed, r0, r1)
+    head = (inlen, tgt) if family == "noblank" else (skip, inlen, tgt)
+    return (em, *head, r0, r1), (*head, final_bar, g_seed, r0, r1)
 
 
 def windows_ms(fn, symbol):
@@ -160,43 +182,6 @@ def windows_ms(fn, symbol):
     if not got:
         return None, None
     return statistics.median(got), [min(got), max(got)]
-
-
-def kernels(family, shape, old_grad, card):
-    """The before and after rows of one family at one shard shape."""
-    args = make_case(family, shape, "cuda", seed=sum(shape))
-    new_grad = (lc.noblank_shard_grad_kernel if family == "noblank"
-                else bl.blank_shard_grad_kernel)
-    sides = {"before": (lambda: old_grad(*args),
-                        f"{family}_backward_kernel"),
-             "after": (lambda: new_grad(*args),
-                       f"{family}_shard_backward_kernel")}
-    runs = {side: [] for side in sides}
-    for side in ("before", "after", "after", "before"):
-        fn, symbol = sides[side]
-        fn()
-        runs[side].append(windows_ms(fn, symbol))
-    want, got = old_grad(*args), new_grad(*args)
-    torch.cuda.synchronize()
-    t_s = args[0].shape[0]
-    rows = []
-    for side in sides:
-        medians = [m for m, _ in runs[side]]
-        row = {"probe": "shard_ab", "family": family,
-               "kernel": f"{family}_shard_backward", "side": side,
-               "shard_shape_TBW": list(args[0].shape),
-               "device_ms_runs": medians,
-               "device_ms_min_max_runs": [mm for _, mm in runs[side]],
-               "step_us_runs": [m * 1e3 / t_s if m is not None else None
-                                for m in medians],
-               "windows": WINDOWS, "card": card}
-        if side == "after":
-            row["max_abs_dev_from_before"] = {
-                name: max_abs_dev(a, b)
-                for name, a, b in zip(("g", "d_init_row_0", "d_init_row_1"),
-                                      got, want)}
-        rows.append(row)
-    return rows
 
 
 def _device_us(e) -> float:
@@ -211,6 +196,55 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
             and _device_us(e) > 0]
+
+
+def kernels_per_call(fn, iters=20):
+    """Device kernels (of any name) that one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof)) / iters
+
+
+def kernels(family, shape, old_fwd, card):
+    """The before and after rows of one family at one shard shape."""
+    args, _ = make_case(family, shape, "cuda", seed=sum(shape))
+    new_fwd = (lc.noblank_shard_forward_kernel if family == "noblank"
+               else bl.blank_shard_forward_kernel)
+    sides = {"before": (lambda: old_fwd(*args), f"{family}_forward_kernel"),
+             "after": (lambda: new_fwd(*args),
+                       f"{family}_shard_forward_kernel")}
+    runs = {side: [] for side in sides}
+    for side in ("before", "after", "after", "before"):
+        fn, symbol = sides[side]
+        fn()
+        runs[side].append(windows_ms(fn, symbol))
+    want, got = old_fwd(*args), new_fwd(*args)
+    torch.cuda.synchronize()
+    t_s = args[0].shape[0]
+    rows = []
+    for side, (fn, _) in sides.items():
+        medians = [m for m, _ in runs[side]]
+        row = {"probe": "shard_ab", "family": family,
+               "kernel": f"{family}_shard_forward", "side": side,
+               "shard_shape_TBW": list(args[0].shape),
+               "em_strides": list(args[0].stride()),
+               "device_ms_runs": medians,
+               "device_ms_min_max_runs": [mm for _, mm in runs[side]],
+               "step_us_runs": [m * 1e3 / t_s if m is not None else None
+                                for m in medians],
+               "device_kernels_per_call": kernels_per_call(fn),
+               "windows": WINDOWS, "card": card}
+        if side == "after":
+            row["max_abs_dev_from_before"] = {
+                name: max_abs_dev(a, b)
+                for name, a, b in zip(("alpha", "final", "boundary"), got,
+                                      want)}
+        rows.append(row)
+    return rows
 
 
 def seq_step(family, steps=20):
@@ -265,19 +299,19 @@ def seq_step(family, steps=20):
     return run
 
 
-def steps(family, old_grad, card):
-    """The seq train step with the shard ops' backward done each way."""
+def steps(family, old_fwd, card):
+    """The seq train step with the shard ops' forward done each way."""
     module = lc if family == "noblank" else bl
-    name = f"{family}_shard_grad_kernel"
-    new_grad = getattr(module, name)
+    name = f"{family}_shard_forward_kernel"
+    new_fwd = getattr(module, name)
     run = seq_step(family)
     runs = {"before": [], "after": []}
     for side in ("before", "after", "after", "before"):
-        setattr(module, name, old_grad if side == "before" else new_grad)
+        setattr(module, name, old_fwd if side == "before" else new_fwd)
         try:
             runs[side].append(run())
         finally:
-            setattr(module, name, new_grad)
+            setattr(module, name, new_fwd)
     T, B, L, M = STEP_SHAPE[family]
     return [{"probe": "shard_ab_step", "family": family, "side": side,
              "shape_TBLM": [T, B, L, M], "shards": 4,
@@ -300,10 +334,10 @@ def main(argv=None) -> list[dict]:
     old = build_parent(args.parent)
     rows = []
     for family in OLD_SIGNATURES:
-        old_grad = old_backward(family, old[family])
-        for part in [kernels(family, shape, old_grad, card)
+        old_fwd = old_forward(family, old[family])
+        for part in [kernels(family, shape, old_fwd, card)
                      for shape in SHAPES[family].values()] + [
-                         steps(family, old_grad, card)]:
+                         steps(family, old_fwd, card)]:
             for row in part:
                 print(json.dumps(row), flush=True)
             rows += part

@@ -211,8 +211,8 @@ def test_shard_ops_validate_operands():
                                      lens, lens, implementation="cuda")
     # the launchers take CUDA tensors only: no quiet CPU run
     with pytest.raises(ValueError, match="CUDA"):
-        lc.noblank_shard_alpha_kernel(em, lens, torch.zeros((3, 5)),
-                                      torch.zeros((3, 5)))
+        lc.noblank_shard_forward_kernel(em, lens, lens, torch.zeros((3, 5)),
+                                        torch.zeros((3, 5)))
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +551,13 @@ CARD_SHARD_CASES = {
     "T3": (3, 8, 10, "random", [3, 0, 1, 2, 4, 6, -1, 3]),
     "plan_boundary": (5, 3, 819, "random", [5, 2, 7]),
     "W1": (5, 4, 1, "init", [1, 5, 9, 0]),
+    # the shard forward: one warp and two (the first halo exchange at step
+    # 8), and the widest row of its warps layout and the narrowest of its
+    # block layout
+    "one_warp": (20, 4, 32, "random", [20, 2, 7, 0]),
+    "two_warps": (20, 4, 33, "random", [20, 2, 7, 0]),
+    "warps_widest": (6, 4, 768, "random", [6, 2, 7, 0]),
+    "block_narrowest": (6, 4, 769, "random", [6, 2, 7, 0]),
 }
 BLANK_CARD_SHARD_CASES = {
     "main_path": (16, 64, 32, "random", list(range(-2, 62))),
@@ -558,11 +565,48 @@ BLANK_CARD_SHARD_CASES = {
     "T3": (3, 8, 4, "random", [3, 0, 1, 2, 4, 6, -1, 3]),
     "plan_boundary": (5, 3, 329, "random", [5, 2, 7]),  # S = 659
     "W1": (5, 4, 0, "random", [1, 5, 9, 0]),  # S = 1: the blank slot alone
+    "one_warp": (20, 4, 15, "random", [20, 2, 7, 0]),  # S = 31
+    "two_warps": (20, 4, 16, "random", [20, 2, 7, 0]),  # S = 33
+    "warps_widest": (6, 4, 255, "random", [6, 2, 7, 0]),  # S = 511
+    "block_narrowest": (6, 4, 256, "random", [6, 2, 7, 0]),  # S = 513
 }
 
 
 def _refuse(*args):
-    raise AssertionError("init_row_grads ran on the kernel path")
+    raise AssertionError("a torch-op epilogue (init_row_grads or "
+                         "gather_final) ran on the kernel path")
+
+
+def _check_forward_triples(module, family, dev, em, extra, r0, r1,
+                           monkeypatch):
+    """The shard forward kernel's ``(alpha, final, boundary)``, one launch
+    each, on em as given and on em as the second of three batch slices of
+    a wider batch (read in place, strided in B), with ``gather_final``
+    refused; both against the plain version's on em."""
+    rng = np.random.default_rng(11)
+    noise = [rng.standard_normal(em.shape).astype(np.float32)
+             for _ in range(2)]
+    wide = torch.tensor(np.concatenate([noise[0], em, noise[1]], axis=1))
+    batch = em.shape[1]
+    em_slice = wide.to(dev)[:, batch:2 * batch]
+    assert em_slice.stride(0) == 3 * batch * em_slice.stride(1)
+    em_dev = torch.tensor(em).to(dev)
+    # the kernel's operand types: int32 lengths, the uint8 skip mask
+    args = [x.to(dev) if x.dtype == torch.uint8 else x.to(dev, torch.int32)
+            for x in extra]
+    rows = [torch.tensor(x).to(dev) for x in (r0, r1)]
+    kernel = getattr(module, f"{family}_shard_forward_kernel")
+    before = module.launch_counts[f"{family}_shard_forward"]
+    with monkeypatch.context() as m:
+        m.setattr(module, "gather_final", _refuse)
+        got = [kernel(e, *args, *rows) for e in (em_dev, em_slice)]
+    assert module.launch_counts[f"{family}_shard_forward"] - before == 2
+    want = getattr(module, f"{family}_shard_forward_plain")(em_dev, *args,
+                                                            *rows)
+    for label, triple in zip(("contiguous", "batch slice"), got):
+        for name, g, w in zip(("alpha", "final", "boundary"), triple, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       err_msg=f"{label} {name}", **LOSS_TOL)
 
 
 @pytest.mark.cuda
@@ -576,8 +620,10 @@ def test_noblank_shard_kernels_match_plain_on_card(cuda_device, case,
     extra = (torch.tensor(inl), torch.tensor(tgt))
     before = dict(lc.launch_counts)
     with monkeypatch.context() as m:
-        # the kernel computes the init rows' gradients itself
+        # the kernels compute the final cell, the boundary row and the init
+        # rows' gradients themselves
         m.setattr(lc, "init_row_grads", _refuse)
+        m.setattr(lc, "gather_final", _refuse)
         got = _card_vjp(lc.noblank_shard_lattice_cuda, cuda_device, em, r0,
                         r1, extra, d_final, d_boundary)
     assert (lc.launch_counts["noblank_shard_forward"]
@@ -591,6 +637,8 @@ def test_noblank_shard_kernels_match_plain_on_card(cuda_device, case,
         np.testing.assert_allclose(
             g, w, err_msg=name,
             **(LOSS_TOL if name in ("final", "boundary") else GRAD_TOL))
+    _check_forward_triples(lc, "noblank", cuda_device, em, extra, r0, r1,
+                           monkeypatch)
 
 
 @pytest.mark.cuda
@@ -613,8 +661,10 @@ def test_blank_shard_kernels_match_plain_on_card(cuda_device, case,
     extra = (skip, torch.tensor(inl), torch.tensor(tgt))
     before = dict(bl.launch_counts)
     with monkeypatch.context() as m:
-        # the kernel computes the init rows' gradients itself
+        # the kernels compute the final cells, the boundary row and the
+        # init rows' gradients themselves
         m.setattr(bl, "init_row_grads", _refuse)
+        m.setattr(bl, "gather_final", _refuse)
         got = _card_vjp(bl.blank_shard_lattice_cuda, cuda_device, em, r0, r1,
                         extra, d_final, d_boundary)
     assert (bl.launch_counts["blank_shard_forward"]
@@ -628,3 +678,6 @@ def test_blank_shard_kernels_match_plain_on_card(cuda_device, case,
         np.testing.assert_allclose(
             g, w, err_msg=name,
             **(LOSS_TOL if name in ("final", "boundary") else GRAD_TOL))
+    _check_forward_triples(bl, "blank", cuda_device, em,
+                           (skip.to(torch.uint8),) + extra[1:], r0, r1,
+                           monkeypatch)

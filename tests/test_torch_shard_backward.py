@@ -141,7 +141,8 @@ def test_sweep_builds_change_the_source_where_they_say(family, build):
     text = (cuda_build.CSRC / f"{family}_lattice.cu").read_text()
     got = shard_sweep.variant_source(text, family, build)
     assert (got == text) == (build == "source")
-    for old, new in shard_sweep._EDITS.get(build, {}).get(family, []):
+    for old, new in shard_sweep._EDITS["backward"].get(build, {}).get(
+            family, []):
         assert text.count(old) == 1 and got.count(new) >= 1
 
 
