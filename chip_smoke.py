@@ -24,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -241,6 +240,19 @@ def phase_parity():
         ("degenerate", (24, 4, 12), True),
         ("L1", (9, 3, 1), False),
         ("wide_L", (20, 3, 1500), False),  # L above one block of threads
+        # the backward's layouts at their edges (lc.backward_plan): both
+        # sides of the chunks-warp layout's widest row (T past a chunk) and
+        # of the warps layout's; the rows layout with its threads striding
+        # unevenly, past the widest row the shard backward's chunks take
+        # (5282) and at the widest the first kernels took; T = 1
+        ("narrow_widest", (37, 5, 32), False),
+        ("wide_narrowest", (37, 6, 33), False),
+        ("warps_widest", (5, 2, 1024), False),
+        ("rows_first", (5, 2, 1025), False),
+        ("rows_strided", (3, 2, 2049), False),
+        ("rows_past_shard", (2, 2, 5283), False),
+        ("rows_widest", (2, 1, 29056), False),
+        ("T1", (1, 9, 10), False),
     ]
     errs = {}
     for label, shape, degenerate in cases:
@@ -272,6 +284,7 @@ def phase_parity():
                     GRAD_ATOL)
         row = {
             "phase": "parity", "case": label, "shape_TBL": list(shape),
+            "backward_plan": list(lc.backward_plan(shape[2])),
             "nll_max_abs_dev": max_dev(nll_k, nll_p),
             "nll_max_rel_dev": float(((nll_k - nll_p).abs()
                                       / nll_p.abs().clamp_min(1e-30)).max()),
@@ -358,6 +371,7 @@ def phase_parity_blank():
     import torch
 
     from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops.lattice_cuda import backward_plan
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
@@ -376,6 +390,17 @@ def phase_parity_blank():
         ("all_edges", (33, 13, 7), every),
         ("L1", (9, 3, 1), {}),
         ("wide_S", (20, 3, 800), {}),  # S = 1601, above one block
+        # the backward's layouts at their edges (lc.backward_plan; S = 2L+1
+        # = 31, 33, 1023, 1025, 2049, 4387, 25827), as in phase_parity
+        # (the shard backward's chunks take up to 4385 slots)
+        ("narrow_widest", (37, 5, 15), {}),
+        ("wide_narrowest", (37, 6, 16), {}),
+        ("warps_widest", (5, 2, 511), {}),
+        ("rows_first", (5, 2, 512), {}),
+        ("rows_strided", (3, 2, 1024), {}),
+        ("rows_past_shard", (2, 2, 2193), {}),
+        ("rows_widest", (2, 1, 12913), {}),
+        ("T1", (1, 9, 5), {}),
     ]
     errs = {}
     for label, shape, flags in cases:
@@ -408,6 +433,7 @@ def phase_parity_blank():
         row = {
             "phase": "parity_blank", "case": label,
             "shape_TBL": list(shape), "S": 2 * shape[2] + 1,
+            "backward_plan": list(backward_plan(2 * shape[2] + 1, True)),
             "nll_max_abs_dev": max_dev(nll_k, nll_p),
             "nll_max_rel_dev": float(((nll_k - nll_p).abs()
                                       / nll_p.abs().clamp_min(1e-30)).max()),
@@ -601,6 +627,7 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
 
     from ctc_tpu_torch.data import synthetic_feature_batches
     from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.ops.lattice_cuda import lattice_kernel_symbol
     from ctc_tpu_torch.train.trainer import (
         TrainState, make_train_step, to_device, torch_style_adam,
     )
@@ -643,8 +670,7 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
     events = device_kernels(prof)
     device_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:10]
-    symbol = re.compile(rf"(?<![a-z]){loss}_(shard_)?(forward|backward)"
-                        r"_kernel")
+    symbol = lattice_kernel_symbol(loss)
     lattice_us = sum(dev_us(e) for e in events if symbol.search(e.key))
     emit({"phase": "profile", "loss": loss, "classes": classes,
           "shape_TBL": list(shape),
@@ -820,6 +846,8 @@ def phase_times(card, name):
                 "library_ms": None, "launches_per_step": 1,
                 "card": card,
             }
+            if kname.endswith("backward"):
+                row["backward_plan"] = list(lc.backward_plan(L))
             emit(row)
             result[(kname, label)] = row
     return result
@@ -836,6 +864,7 @@ def phase_times_blank(card, name):
 
     from ctc_tpu_torch.losses.blank import blank_emissions_and_skip, ctc_loss
     from ctc_tpu_torch.ops import blank_lattice_cuda as bl
+    from ctc_tpu_torch.ops import lattice_cuda as lc
 
     gen = torch.Generator().manual_seed(5)
     rate = hbm_rate(name)
@@ -947,6 +976,8 @@ def phase_times_blank(card, name):
                     "forward") else "F.ctc_loss backward alone"),
                 **pair, "launches_per_step": 1, "card": card,
             }
+            if kname.endswith("backward"):
+                row["backward_plan"] = list(lc.backward_plan(S, True))
             emit(row)
             result[(kname, label)] = row
     return result

@@ -16,8 +16,9 @@
 // recursion is sequential in T, so at small B the real limit is the latency
 // of T dependent steps inside one block.
 //
-// Design (that of noblank_lattice.cu): one thread block per sample b,
-// threads across the slots s (strided when S exceeds the block).  The block
+// Design of the forward (and of the backward's rows layout; that of
+// noblank_lattice.cu): one thread block per sample b, threads across the
+// slots s (strided when S exceeds the block).  The block
 // walks all of T itself; the carried row lives in a shared-memory double
 // buffer, so each step costs one __syncthreads and the s-1 / s-2 (forward)
 // and s+1 / s+2 (backward) neighbour reads never race the write of the next
@@ -32,6 +33,29 @@
 // reads, and their gradient stays exactly 0).  The backward's branch
 // weights are exp(source - lse) with every masked source at the sentinel,
 // exactly as the XLA scan's autodiff and the Pallas kernel compute them.
+//
+// The whole-lattice backward (blank_backward_kernel<kLayout, kChunk>,
+// entry blank_lattice_backward) first had that design too: each step
+// loaded alpha[t] at s-2 .. s+2 after the step before's barrier and ran
+// three three-way log-adds and three expf a slot (a slot's lse three
+// times, ~15 transcendentals) before its multiply-adds: 9.8 us at T=10,
+// B=256, S=11 and 0.160 ms at T=128, B=1024, S=41, against bounds of 0.07
+// and 12.9 us.  It now has the layouts of noblank_lattice.cu's backward,
+// picked by width (ops/lattice_cuda.py::backward_plan): chunks-warp up to
+// 32 slots (128 threads stage and weight a 16-row chunk, one log-add and
+// three expf a slot, the rows side by side; one warp steps with shuffles
+// by 1 and 2), warps from 33 to 1024 slots (two slots a lane: three
+// shuffles serve both, as a skip reaches only the next lane; S=41 is one
+// warp, no barrier) and rows, the first kernel's row loop, beyond them to
+// the 25827 slots it took (the shard backward's chunked body at 512
+// threads and 4- or 1-row chunks, as it would run past 1024 slots, lost
+// to it at S=41: 0.191 and 0.354 ms against 0.167 on the card below,
+// lattice_ab --plans).  Measured (NVIDIA H100 80GB HBM3, 700.00 W;
+// python -m ctc_tpu_torch.probes.lattice_ab, median of 5 profiler
+// windows, in turns with the first kernel): 3.71 us at S=11 (9.79 before, 0.379x) and
+// 0.0680 ms at S=41 (0.1597 before, 0.426x).  A first design that
+// weighted a chunk's rows lane by lane in one warp ran 5.4-6.3 us at S=11:
+// two dependent log1pf a row, ten rows one after another.
 //
 // The shard forward (blank_shard_forward_kernel<kDepth, kHalo>, entry
 // blank_shard_forward; replaces
@@ -498,13 +522,17 @@ __global__ void __launch_bounds__(1024)
 // inject = -nll_bar[b] * softmax(final two cells) at t = inlen[b] - 1, on
 // s = 2 tgt[b] and (tgt[b] > 0) s = 2 tgt[b] - 1.  g is zero above the last
 // row, so every row at or past inlen[b] comes out exactly 0.
-__global__ void blank_backward_kernel(const float* __restrict__ alpha,
-                                      const unsigned char* __restrict__ skip,
-                                      const int* __restrict__ inlen,
-                                      const int* __restrict__ tgt,
-                                      const float* __restrict__ nll_bar,
-                                      float* __restrict__ g, int T, int B,
-                                      int S) {
+//
+// The rows layout (the first design, for rows wider than the warps layout
+// takes): one block per sample, the carried row in a shared double buffer,
+// alpha[t] at s-2 .. s+2 read from device memory and the three weights
+// into s, s+1 and s+2 (three three-way log-adds, three expf) computed
+// inside the step, one __syncthreads a step.
+__device__ __forceinline__ void blank_backward_rows(
+    const float* __restrict__ alpha, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    const float* __restrict__ nll_bar, float* __restrict__ g, int T, int B,
+    int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
   unsigned char* skip_sh = reinterpret_cast<unsigned char*>(rows + 2 * S);
   const int b = blockIdx.x;
@@ -566,12 +594,15 @@ __global__ void blank_backward_kernel(const float* __restrict__ alpha,
   }
 }
 
-// Shared memory of the shard backward, in floats per slot s: two staged
-// alpha chunks, the chunk's three weight rows per alpha row, the carried g
-// double buffer, the g_seed row, the two init rows and their three weight
-// rows; then one skip byte per slot.
+// Shared memory of the chunked backward, in floats per slot s: two staged
+// alpha chunks, the chunk's three weight rows per alpha row and the
+// carried g double buffer; the shard backward adds the g_seed row, the two
+// init rows and their three weight rows.  Then one skip byte per slot.
+__host__ __device__ constexpr int chunked_floats_per_cell(int chunk) {
+  return 2 * chunk + 3 * chunk + 2;
+}
 __host__ __device__ constexpr int shard_floats_per_cell(int chunk) {
-  return 2 * chunk + 3 * chunk + 2 + 1 + 2 + 3;
+  return chunked_floats_per_cell(chunk) + 1 + 2 + 3;
 }
 
 // The three branch weights into slot s of one step, read off the row the
@@ -593,9 +624,11 @@ __device__ __forceinline__ void branch_weights(const float* row,
   w[2 * S + s] = expf(a_skip - lse);
 }
 
-// One T-shard's reverse recursion (the recursion above with the shard's
-// boundaries: the inject is +bar[b] times the softmax, g_seed[b] is added
-// at t = T-1), and the gradients of both init rows, in one launch:
+// The reverse recursion above with alpha staged in chunks: the chunks-warp
+// layout of the whole-lattice backward (kShard false: the inject is -nll_bar[b] times the softmax, the shard pointers unused) and
+// the shard backward (kShard true: the recursion with the shard's
+// boundaries, the inject +bar[b] times the softmax and g_seed[b] added at
+// t = T-1, and the gradients of both init rows):
 //   d_init0[b, s] = g[0, s] * w_stay(-1, s) + g[0, s+1] * w_adv(-1, s+1)
 //   d_skip0[b, s] = g[0, s+2] * w_skip(-1, s+2)
 // (terms past S-1 are 0) where row -1's weights read stay and advance off
@@ -605,29 +638,29 @@ __device__ __forceinline__ void branch_weights(const float* row,
 // by cp.async one chunk ahead (two buffers); each chunk's weights are
 // computed from the staged rows before its steps, so a step reads g_next
 // and three weights from shared memory and does the multiply-adds only.
-template <int kChunk>
-__global__ void __launch_bounds__(512)
-    blank_shard_backward_kernel(const float* __restrict__ alpha,
-                                const unsigned char* __restrict__ skip,
-                                const int* __restrict__ inlen,
-                                const int* __restrict__ tgt,
-                                const float* __restrict__ bar,
-                                const float* __restrict__ g_seed,
-                                const float* __restrict__ init0,
-                                const float* __restrict__ skip0,
-                                float* __restrict__ g,
-                                float* __restrict__ d_init0,
-                                float* __restrict__ d_skip0, int T, int B,
-                                int S) {
+// With kWarpSteps (rows of up to 32 slots, not kShard) the block stages and
+// weights each chunk, its rows side by side, and warp 0 alone runs the
+// steps: a lane a slot, the carried g in a register, the right neighbours'
+// advance and skip terms by __shfl_down_sync by 1 and 2, no barrier a
+// step; the next chunk's first barrier orders its reads of the weights
+// before they are overwritten.
+template <int kChunk, bool kShard, bool kWarpSteps = false>
+__device__ __forceinline__ void blank_backward_chunked(
+    const float* __restrict__ alpha, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    const float* __restrict__ bar, const float* __restrict__ g_seed,
+    const float* __restrict__ init0, const float* __restrict__ skip0,
+    float* __restrict__ g, float* __restrict__ d_init0,
+    float* __restrict__ d_skip0, int T, int B, int S) {
   extern __shared__ float smem[];
   float* chunks = smem;                      // [2][kChunk][S] alpha
   float* weights = chunks + 2 * kChunk * S;  // [kChunk][3][S]
   float* rows = weights + 3 * kChunk * S;    // [2][S] carried g
-  float* seed = rows + 2 * S;                // [S] g_seed[b]
+  float* seed = rows + 2 * S;                // [S] g_seed[b] (kShard)
   float* init = seed + S;                    // [2][S] init0[b], skip0[b]
   float* init_w = init + 2 * S;              // [3][S] row -1's weights
   unsigned char* skip_sh =                   // [S] skip_ok[b]
-      reinterpret_cast<unsigned char*>(init_w + 3 * S);
+      reinterpret_cast<unsigned char*>(kShard ? init_w + 3 * S : seed);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int b = blockIdx.x;
@@ -667,15 +700,19 @@ __global__ void __launch_bounds__(512)
 
   // group 0: the seed and init rows with chunk 0; group 1: chunk 1
   for (int s = tid; s < S; s += nt) {
-    cp_async::copy4(seed + s, g_seed + b_off + s);
-    cp_async::copy4(init + s, init0 + b_off + s);
-    cp_async::copy4(init + S + s, skip0 + b_off + s);
+    if constexpr (kShard) {
+      cp_async::copy4(seed + s, g_seed + b_off + s);
+      cp_async::copy4(init + s, init0 + b_off + s);
+      cp_async::copy4(init + S + s, skip0 + b_off + s);
+    }
     skip_sh[s] = skip[b_off + s];
   }
   stage(0);
   stage(1);
   // the final-cell injection, read from device memory while chunk 0 flies
-  const FinalInject fin(alpha_b, row_stride, T, S, t_inject, tgt[b], bar[b]);
+  const FinalInject fin(alpha_b, row_stride, T, S, t_inject, tgt[b],
+                        kShard ? bar[b] : -bar[b]);
+  float g_lane = 0.0f;  // kWarpSteps: warp 0's g[t+1, b, tid]
   for (int c = 0; c < n_chunks; ++c) {
     const int lo = chunk_lo(c);
     const int n = T - c * kChunk - lo;
@@ -692,13 +729,44 @@ __global__ void __launch_bounds__(512)
                        weights + 3 * k * S);
       }
     }
-    if (c == 0) {
+    if (kShard && c == 0) {
       for (int s = tid; s < S; s += nt) {
         branch_weights(init, init + S, skip_sh, s, S, init_w);
       }
     }
     // publishes the weights; every read of chunk c's buffer is done
     __syncthreads();
+    if constexpr (kWarpSteps) {
+      stage(c + 2);  // into the buffer this chunk leaves
+      if (tid < 32) {
+        const bool real = tid < S;
+        const float inj = fin.at(tid);
+#pragma unroll
+        for (int k = kChunk - 1; k >= 0; --k) {
+          if (k < n) {
+            const int t = lo + k;
+            const float* w = weights + 3 * k * S;
+            const float w_stay = real ? w[tid] : 0.0f;
+            const float w_adv = real ? w[S + tid] : 0.0f;
+            const float w_skip = real ? w[2 * S + tid] : 0.0f;
+            const float inject = (t == t_inject) ? inj : 0.0f;
+            float prop = 0.0f;
+            if (t < T - 1) {
+              const float right1 =
+                  __shfl_down_sync(kFullMask, g_lane * w_adv, 1);
+              const float right2 =
+                  __shfl_down_sync(kFullMask, g_lane * w_skip, 2);
+              const float stay = g_lane * w_stay;
+              prop = (stay + ((tid + 1 < S) ? right1 : 0.0f)) +
+                     ((tid + 2 < S) ? right2 : 0.0f);
+            }
+            g_lane = inject + prop;
+            if (real) g_b[static_cast<size_t>(t) * row_stride + tid] = g_lane;
+          }
+        }
+      }
+      continue;
+    }
     stage(c + 2);  // into the buffer chunk c leaves
     for (int k = n - 1; k >= 0; --k) {
       const int t = lo + k;
@@ -709,7 +777,7 @@ __global__ void __launch_bounds__(512)
       float* g_t = g_b + static_cast<size_t>(t) * row_stride;
       for (int s = tid; s < S; s += nt) {
         float inject = (t == t_inject) ? fin.at(s) : 0.0f;
-        if (t == T - 1) inject += seed[s];
+        if (kShard && t == T - 1) inject += seed[s];
         float prop = 0.0f;
         if (t < T - 1) {
           const float stay = g_next[s] * w[s];
@@ -727,14 +795,243 @@ __global__ void __launch_bounds__(512)
     }
   }
   // g[0], the row the last step wrote, published by that step's barrier
-  const float* g0 = rows + (T & 1) * S;
-  for (int s = tid; s < S; s += nt) {
-    const float from_adv =
-        (s + 1 < S) ? g0[s + 1] * init_w[S + s + 1] : 0.0f;
-    d_init0[b_off + s] = g0[s] * init_w[s] + from_adv;
-    d_skip0[b_off + s] = (s + 2 < S) ? g0[s + 2] * init_w[2 * S + s + 2]
-                                     : 0.0f;
+  if constexpr (kShard) {
+    const float* g0 = rows + (T & 1) * S;
+    for (int s = tid; s < S; s += nt) {
+      const float from_adv =
+          (s + 1 < S) ? g0[s + 1] * init_w[S + s + 1] : 0.0f;
+      d_init0[b_off + s] = g0[s] * init_w[s] + from_adv;
+      d_skip0[b_off + s] = (s + 2 < S) ? g0[s + 2] * init_w[2 * S + s + 2]
+                                       : 0.0f;
+    }
   }
+}
+
+// The warps layout of the whole-lattice backward, rows of 33 to
+// kBackwardWarpsWidth slots (that of noblank_lattice.cu): one block a
+// sample, two slots a lane (slots 2i and 2i+1 of lane i), the carried g and
+// the skip permissions in registers, alpha by cp.async into the lane's own
+// staging columns, chunk c+1 in flight while chunk c's steps run (lane 0 of
+// each warp also stages the two slots before the warp's first, kHalo = 2).
+// A chunk's weights are computed before its steps, into registers: its
+// alpha rows are read first, alpha[t, 2i-1] and alpha[t, 2i-2] come from the
+// lane before by __shfl_up_sync (lane 0: its halo slots), then one
+// three-way log-add and three expf a slot.  A step adds slot 2i+1's advance
+// term to slot 2i in the lane, and takes the next lane's advance and skip
+// terms of slot 2i+2 and skip term of slot 2i+3 by three __shfl_down_sync;
+// lane 31 takes the next warp's lane 0's through shared exchange slots
+// (two buffers) after the step's one __syncthreads (none in a one-warp
+// row).
+template <int kChunk>
+__device__ __forceinline__ void blank_backward_warps(
+    const float* __restrict__ alpha, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    const float* __restrict__ nll_bar, float* __restrict__ g, int T, int B,
+    int S) {
+  extern __shared__ float smem[];
+  const int i = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int n_warps = nt >> 5;
+  const int b = blockIdx.x;
+  const int s0 = 2 * i;  // this lane's slots s0 and s0 + 1
+  const bool real0 = s0 < S;
+  const bool real1 = s0 + 1 < S;
+  const bool stage_halo = lane == 0 && s0 > 0;  // slots s0-1 and s0-2
+  const size_t row_stride = static_cast<size_t>(B) * S;
+  const size_t b_off = static_cast<size_t>(b) * S;
+  const float* src = alpha + b_off + s0;
+  const int chunk_count = (T + kChunk - 1) / kChunk;
+  // [2][kChunk][2][nt] staged slots, [2][kChunk][n_warps][2] halo slots,
+  // and the [2][n_warps][3] exchange slots
+  float* halo = smem + 2 * kChunk * 2 * nt;
+  float* xch = halo + 2 * kChunk * n_warps * 2;
+  const unsigned mine = cp_async::shared_address(smem + i);
+  const unsigned mine_halo = cp_async::shared_address(halo + 2 * warp);
+  const unsigned slot = 4 * nt;
+  const unsigned halo_slot = 4 * 2 * n_warps;
+  auto lo_of = [&](int c) { return max(T - (c + 1) * kChunk, 0); };
+  auto stage = [&](int c) {  // chunk c's slots of this lane, one group
+    if (c < chunk_count) {
+      const int lo = lo_of(c);
+      const int n = T - c * kChunk - lo;
+      const float* row = src + static_cast<size_t>(lo) * row_stride;
+      unsigned dst = mine + (c & 1) * kChunk * 2 * slot;
+      unsigned dst_halo = mine_halo + (c & 1) * kChunk * halo_slot;
+      for (int k = 0; k < n; ++k) {
+        if (real0) cp_async::copy4(dst, row);
+        if (real1) cp_async::copy4(dst + slot, row + 1);
+        if (stage_halo) {
+          cp_async::copy4(dst_halo, row - 1);
+          cp_async::copy4(dst_halo + 4, row - 2);
+        }
+        row += row_stride;
+        dst += 2 * slot;
+        dst_halo += halo_slot;
+      }
+    }
+    cp_async::commit();
+  };
+  stage(0);
+  stage(1);
+  // read while the first chunks are in flight
+  const bool skip0 = real0 && s0 >= 2 && skip[b_off + s0];
+  const bool skip1 = real1 && s0 + 1 >= 2 && skip[b_off + s0 + 1];
+  const int t_inject = inlen[b] - 1;
+  const FinalInject fin(alpha + b_off, row_stride, T, S, t_inject, tgt[b],
+                        -nll_bar[b]);
+  const float inj0 = fin.at(s0);
+  const float inj1 = fin.at(s0 + 1);
+  const bool wide = n_warps > 1;
+  const bool takes_next = lane == 31 && warp + 1 < n_warps;
+  // this warp's exchange slots and the next warp's; a step uses the row at
+  // offset x_row, toggled a step
+  float* x_mine = xch + 3 * warp;
+  const float* x_next = xch + 3 * (warp + 1);
+  int x_row = 0;
+
+  float g0 = 0.0f, g1 = 0.0f;  // g[t+1, b, s0], g[t+1, b, s0+1]
+  float* out = g + static_cast<size_t>(T - 1) * row_stride + b_off +
+               s0;  // g[t, b, s0], t = T-1 first
+  for (int c = 0; c < chunk_count; ++c) {
+    const int lo = lo_of(c);
+    const int n = T - c * kChunk - lo;
+    const int u = (c & 1) * kChunk;
+    cp_async::wait<1>();  // this lane's copies of chunk c have landed
+    float a0[kChunk], a1[kChunk], h1[kChunk], h2[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float v0 = smem[((u + k) * 2) * nt + i];
+      const float v1 = smem[((u + k) * 2 + 1) * nt + i];
+      a0[k] = (real0 && k < n) ? v0 : kNeg;
+      a1[k] = (real1 && k < n) ? v1 : kNeg;
+      // lane 0's halo slots s0-1 and s0-2
+      h1[k] = halo[((u + k) * n_warps + warp) * 2];
+      h2[k] = halo[((u + k) * n_warps + warp) * 2 + 1];
+    }
+    stage(c + 2);  // into the buffer this lane has read
+    float w_stay0[kChunk], w_adv0[kChunk], w_skip0[kChunk];
+    float w_stay1[kChunk], w_adv1[kChunk], w_skip1[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float left1 = __shfl_up_sync(kFullMask, a1[k], 1);  // s0-1
+      const float left0 = __shfl_up_sync(kFullMask, a0[k], 1);  // s0-2
+      const float a_m1 = (s0 < 1) ? kNeg : ((lane == 0) ? h1[k] : left1);
+      const float a_m2 = (lane == 0) ? h2[k] : left0;
+      const float skip_src0 = skip0 ? a_m2 : kNeg;
+      const float lse0 = logaddexp3(a0[k], a_m1, skip_src0);
+      w_stay0[k] = expf(a0[k] - lse0);
+      w_adv0[k] = expf(a_m1 - lse0);
+      w_skip0[k] = expf(skip_src0 - lse0);
+      const float skip_src1 = skip1 ? a_m1 : kNeg;
+      const float lse1 = logaddexp3(a1[k], a0[k], skip_src1);
+      w_stay1[k] = expf(a1[k] - lse1);
+      w_adv1[k] = expf(a0[k] - lse1);
+      w_skip1[k] = expf(skip_src1 - lse1);
+    }
+#pragma unroll
+    for (int k = kChunk - 1; k >= 0; --k) {
+      if (k < n) {
+        const int t = lo + k;
+        const bool at_inject = t == t_inject;
+        float prop0 = 0.0f, prop1 = 0.0f;
+        if (t < T - 1) {
+          // the next lane's terms: slot s0+2's advance and skip, s0+3's skip
+          const float xa = g0 * w_adv0[k];
+          const float xs0 = g0 * w_skip0[k];
+          const float xs1 = g1 * w_skip1[k];
+          float ra = __shfl_down_sync(kFullMask, xa, 1);
+          float rs0 = __shfl_down_sync(kFullMask, xs0, 1);
+          float rs1 = __shfl_down_sync(kFullMask, xs1, 1);
+          if (wide) {
+            if (lane == 0) {
+              x_mine[x_row] = xa;
+              x_mine[x_row + 1] = xs0;
+              x_mine[x_row + 2] = xs1;
+            }
+            __syncthreads();
+            if (takes_next) {
+              ra = x_next[x_row];
+              rs0 = x_next[x_row + 1];
+              rs1 = x_next[x_row + 2];
+            }
+            x_row = 3 * n_warps - x_row;
+          }
+          const float stay0 = g0 * w_stay0[k];
+          const float stay1 = g1 * w_stay1[k];
+          prop0 = (stay0 + (real1 ? g1 * w_adv1[k] : 0.0f)) +
+                  ((s0 + 2 < S) ? rs0 : 0.0f);
+          prop1 = (stay1 + ((s0 + 2 < S) ? ra : 0.0f)) +
+                  ((s0 + 3 < S) ? rs1 : 0.0f);
+        }
+        g0 = (at_inject ? inj0 : 0.0f) + prop0;
+        g1 = (at_inject ? inj1 : 0.0f) + prop1;
+        if (real0) out[0] = g0;
+        if (real1) out[1] = g1;
+        out -= row_stride;
+      }
+    }
+  }
+}
+
+// The whole-lattice backward's layouts (kLayout), picked by the wrapper's
+// plan (ops/lattice_cuda.py::backward_plan, BACKWARD_LAYOUTS):
+constexpr int kRowsLayout = 0;   // blank_backward_rows
+constexpr int kWarpsLayout = 1;  // blank_backward_warps<kChunk>
+// blank_backward_chunked<kChunk, false, true>
+constexpr int kChunksWarpLayout = 2;
+// the widest row of the warps layout: two slots a lane, 16 warps
+constexpr int kBackwardWarpsWidth = 1024;
+// the warps layout's halo slots (before a warp's first) and exchange slots
+// a warp
+constexpr int kBackwardHalo = 2;
+constexpr int kBackwardExchange = 3;
+
+// The most threads a block of each layout may have (its launch bounds).
+__host__ __device__ constexpr int backward_max_threads(int layout) {
+  return layout == kRowsLayout ? 1024 : 512;
+}
+
+template <int kLayout, int kChunk>
+__global__ void __launch_bounds__(backward_max_threads(kLayout))
+    blank_backward_kernel(const float* __restrict__ alpha,
+                          const unsigned char* __restrict__ skip,
+                          const int* __restrict__ inlen,
+                          const int* __restrict__ tgt,
+                          const float* __restrict__ nll_bar,
+                          float* __restrict__ g, int T, int B, int S) {
+  if constexpr (kLayout == kWarpsLayout) {
+    blank_backward_warps<kChunk>(alpha, skip, inlen, tgt, nll_bar, g, T, B,
+                                 S);
+  } else if constexpr (kLayout == kChunksWarpLayout) {
+    blank_backward_chunked<kChunk, false, true>(
+        alpha, skip, inlen, tgt, nll_bar, nullptr, nullptr, nullptr, g,
+        nullptr, nullptr, T, B, S);
+  } else {
+    blank_backward_rows(alpha, skip, inlen, tgt, nll_bar, g, T, B, S);
+  }
+}
+
+// One T-shard's reverse recursion and the gradients of both init rows, in
+// one launch (blank_backward_chunked<kChunk, true>).
+template <int kChunk>
+__global__ void __launch_bounds__(512)
+    blank_shard_backward_kernel(const float* __restrict__ alpha,
+                                const unsigned char* __restrict__ skip,
+                                const int* __restrict__ inlen,
+                                const int* __restrict__ tgt,
+                                const float* __restrict__ bar,
+                                const float* __restrict__ g_seed,
+                                const float* __restrict__ init0,
+                                const float* __restrict__ skip0,
+                                float* __restrict__ g,
+                                float* __restrict__ d_init0,
+                                float* __restrict__ d_skip0, int T, int B,
+                                int S) {
+  blank_backward_chunked<kChunk, true>(alpha, skip, inlen, tgt, bar, g_seed,
+                                       init0, skip0, g, d_init0, d_skip0, T,
+                                       B, S);
 }
 
 int block_threads(int S) {
@@ -841,18 +1138,82 @@ cudaError_t launch_shard_forward(const float* em, const unsigned char* skip,
   }
 }
 
+// Shared bytes of a whole-lattice backward block in layout `layout`: the
+// warps layout's staging columns, halo slots and exchange slots; the
+// chunks-warp layout's chunked_floats_per_cell floats and the rows
+// layout's two rows a slot, each with the slot's skip byte.
+size_t backward_bytes(int layout, int S, int chunk, int threads) {
+  if (layout == kWarpsLayout) {
+    const size_t warps = threads / 32;
+    return sizeof(float) * 2 *
+           (static_cast<size_t>(chunk) *
+                (2 * threads + warps * kBackwardHalo) +
+            warps * kBackwardExchange);
+  }
+  if (layout == kChunksWarpLayout) {
+    return static_cast<size_t>(S) *
+           (sizeof(float) * chunked_floats_per_cell(chunk) + 1);
+  }
+  return shared_bytes(S);
+}
+
+// Whether a block of `threads` in `layout` fits rows of S slots: the
+// warps layout takes a row of up to kBackwardWarpsWidth slots, two a
+// lane, in whole warps; the chunks-warp layout rows of up to one warp.
+bool threads_fit(int layout, int S, int threads) {
+  if (layout == kWarpsLayout) {
+    return S <= kBackwardWarpsWidth && threads == 32 * ((S + 63) / 64);
+  }
+  return layout != kChunksWarpLayout || S <= 32;
+}
+
+template <int kLayout, int kChunk>
+cudaError_t launch_backward_layout(const float* alpha,
+                                   const unsigned char* skip,
+                                   const int* inlen, const int* tgt,
+                                   const float* bar, float* g, int T, int B,
+                                   int S, int threads, size_t smem,
+                                   cudaStream_t stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(blank_backward_kernel<kLayout, kChunk>);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  blank_backward_kernel<kLayout, kChunk><<<B, threads, smem, stream>>>(
+      alpha, skip, inlen, tgt, bar, g, T, B, S);
+  return cudaGetLastError();
+}
+
+// The plan (layout, chunk, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::backward_plan).  A layout or chunk the kernel is
+// not built for, a block past the layout's launch bounds or that does not
+// fit the row (threads_fit), or shared bytes that do not match the layout
+// are refused.
 cudaError_t launch_backward(const float* alpha, const unsigned char* skip,
                             const int* inlen, const int* tgt,
                             const float* bar, float* g, int T, int B, int S,
+                            int layout, int chunk, int threads, int smem,
                             cudaStream_t stream) {
   if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
-  const size_t smem = shared_bytes(S);
-  cudaError_t err = prepare(
-      reinterpret_cast<const void*>(blank_backward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  blank_backward_kernel<<<B, block_threads(S), smem, stream>>>(
-      alpha, skip, inlen, tgt, bar, g, T, B, S);
-  return cudaGetLastError();
+  const size_t bytes = static_cast<size_t>(smem);
+  if (layout < kRowsLayout || layout > kChunksWarpLayout || threads < 32 ||
+      threads % 32 != 0 || threads > backward_max_threads(layout) ||
+      !threads_fit(layout, S, threads) ||
+      bytes != backward_bytes(layout, S, chunk, threads)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (layout * 32 + chunk) {
+    case kWarpsLayout * 32 + 8:
+      return launch_backward_layout<kWarpsLayout, 8>(
+          alpha, skip, inlen, tgt, bar, g, T, B, S, threads, bytes, stream);
+    case kChunksWarpLayout * 32 + 16:
+      return launch_backward_layout<kChunksWarpLayout, 16>(
+          alpha, skip, inlen, tgt, bar, g, T, B, S, threads, bytes, stream);
+    case kRowsLayout * 32 + 0:
+      return launch_backward_layout<kRowsLayout, 0>(
+          alpha, skip, inlen, tgt, bar, g, T, B, S, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kChunk>
@@ -914,13 +1275,15 @@ cudaError_t blank_lattice_forward(const float* em, const unsigned char* skip,
   return launch_forward(em, skip, alpha, T, B, S, stream);
 }
 
+// layout, chunk, threads and smem are the wrapper's plan.
 cudaError_t blank_lattice_backward(const float* alpha,
                                    const unsigned char* skip, const int* inlen,
                                    const int* tgt, const float* nll_bar,
-                                   float* g, int T, int B, int S,
+                                   float* g, int T, int B, int S, int layout,
+                                   int chunk, int threads, int smem,
                                    cudaStream_t stream) {
-  return launch_backward(alpha, skip, inlen, tgt, nll_bar, g, T, B, S,
-                         stream);
+  return launch_backward(alpha, skip, inlen, tgt, nll_bar, g, T, B, S, layout,
+                         chunk, threads, smem, stream);
 }
 
 // One T-shard: inlen is shard-local, init0 / skip0 are the [B, S] init

@@ -15,11 +15,12 @@
 // is sequential in T, so the real limit at small B is the latency of T
 // dependent steps inside one block.
 //
-// Design: one thread block per sample b, threads across the label
-// positions l (strided when L exceeds the block).  The block walks all of T
-// itself: the carried row lives in a shared-memory double buffer, so each
-// step costs one __syncthreads and the l-1 / l+1 neighbour read never races
-// the write of the next row.  Row reads and writes of [t, b, :] are
+// Design of the forward (and of the backward's rows layout): one thread
+// block per sample b, threads across the label positions l (strided when L
+// exceeds the block).  The block walks all of T itself: the carried row
+// lives in a shared-memory double buffer, so each step costs one
+// __syncthreads and the l-1 / l+1 neighbour read never races the write of
+// the next row.  Row reads and writes of [t, b, :] are
 // contiguous in l, so every warp's access is coalesced.  Many samples (B
 // blocks, ~10 resident per SM at L=157) are in flight at once, which is
 // what hides each step's load latency.  Numerics follow the JAX package:
@@ -27,6 +28,44 @@
 // log1p(exp(-|a-b|)), the outside mask applied before the emission add, and
 // sigmoid branch weights in the backward (degenerate lattices need the
 // exact 1/2, 1/2 split).
+//
+// The whole-lattice backward (noblank_backward_kernel<kLayout, kChunk>,
+// entry noblank_lattice_backward) first had that design: each of T steps
+// loaded alpha[t] at l-1, l, l+1 from device memory after the step before's
+// barrier and computed two sigmoids a cell (each cell's weight twice)
+// before the one multiply-add that needs g[t+1]: 7.0 us at T=10, B=256,
+// L=10 (one warp, 22 of 32 lanes idle) and 0.147 ms at T=128, B=1024,
+// L=157, against bounds of 0.06 and 49 us.  Neither the load nor the
+// weights depend on g, so every layout takes them off the dependent chain:
+// alpha is staged by cp.async a chunk of rows ahead and each cell's
+// weights are computed once, before the chunk's steps.  The plan
+// (ops/lattice_cuda.py::backward_plan) picks the layout by width:
+//   - chunks-warp, rows of up to 32 cells: the chunked body below with 128
+//     threads staging and weighting each 16-row chunk, its rows side by
+//     side, and one warp running the steps with g in registers, the right
+//     neighbour's term by __shfl_down_sync, no barrier a step (weighting a
+//     chunk's rows lane by lane in one warp put ten IEEE divides one after
+//     another on the path: 4.3-4.7 us).
+//   - warps, 33 to 1024 cells: one block a sample, two cells a lane, alpha
+//     staged into each lane's own columns 8 rows ahead, the weights in
+//     registers, one shuffle and (across warps) one exchange slot and one
+//     barrier a step.  One cell a lane read 0.102-0.120 ms at L=157: its
+//     ~55-instruction step and 62 registers (6 blocks of 160 threads an
+//     SM, two waves) made it issue-bound; two cells a lane halve the
+//     step's cost per cell and the warps.
+//   - rows, wider rows to the 29056 cells the first kernel took: its row
+//     loop unchanged.  (The shard backward's chunked body with 512 threads
+//     and 4- or 1-row chunks lost to it at L=157, 0.217 and 0.287 ms
+//     against 0.146 on the card below, lattice_ab --plans, so it takes no
+//     whole-lattice width.)
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; python -m
+// ctc_tpu_torch.probes.lattice_ab, median of 5 profiler windows, in turns
+// with the first kernel): 3.75 us at T=10, B=256, L=10 (6.99 before,
+// 0.536x) and 0.0848 ms at T=128, B=1024, L=157 (0.1470 before, 0.577x;
+// 58% of the bytes bound).  At L=157 a step of the warps layout is ~84 SASS
+// instructions for two cells (their two IEEE divides, sunk into the step
+// by the compiler, the shuffle, exchange and barrier), ~950 SM cycles with
+// ~23 warps an SM.
 //
 // The shard forward (noblank_shard_forward_kernel<kDepth, kHalo>, entry
 // noblank_shard_forward; replaces lattice_pallas.py:_forward_kernel_boundary)
@@ -460,12 +499,15 @@ __global__ void __launch_bounds__(1024)
 // w_adv = (1 - sigmoid(...)) * inside(l), and inject = -bar[b] at
 // (inlen[b]-1, tgt[b]-1).  g is zero above the last row, so every row at or
 // past inlen[b] comes out exactly 0.
-__global__ void noblank_backward_kernel(const float* __restrict__ alpha,
-                                        const int* __restrict__ inlen,
-                                        const int* __restrict__ tgt,
-                                        const float* __restrict__ bar,
-                                        float* __restrict__ g, int T, int B,
-                                        int L) {
+//
+// The rows layout (the first design, for rows wider than the warps layout
+// takes): one block per sample, the carried row in a shared double buffer,
+// alpha[t] at l-1, l, l+1 read from device memory and both sigmoids of a
+// cell computed inside the step, one __syncthreads a step.
+__device__ __forceinline__ void noblank_backward_rows(
+    const float* __restrict__ alpha, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, const float* __restrict__ bar,
+    float* __restrict__ g, int T, int B, int L) {
   extern __shared__ float rows[];  // [2][L]
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
@@ -512,17 +554,22 @@ __global__ void noblank_backward_kernel(const float* __restrict__ alpha,
   }
 }
 
-// Shared memory of the shard backward, in floats per lattice cell l: two
-// staged alpha chunks, the chunk's two weight rows per alpha row, the
-// carried g double buffer, the g_seed row, the two init rows and their two
-// weight rows.
+// Shared memory of the chunked backward, in floats per lattice cell l: two
+// staged alpha chunks, the chunk's two weight rows per alpha row and the
+// carried g double buffer; the shard backward adds the g_seed row, the two
+// init rows and their two weight rows.
+__host__ __device__ constexpr int chunked_floats_per_cell(int chunk) {
+  return 2 * chunk + 2 * chunk + 2;
+}
 __host__ __device__ constexpr int shard_floats_per_cell(int chunk) {
-  return 2 * chunk + 2 * chunk + 2 + 1 + 2 + 2;
+  return chunked_floats_per_cell(chunk) + 1 + 2 + 2;
 }
 
-// One T-shard's reverse recursion (the recursion above with the shard's
-// boundaries: inject = +bar[b], g_seed[b] added at t = T-1), and the
-// gradients of both init rows, in one launch:
+// The reverse recursion above with alpha staged in chunks: the chunks-warp
+// layout of the whole-lattice backward (kShard false: inject = -bar[b],
+// the shard pointers unused) and the shard backward (kShard true: the
+// recursion with the shard's boundaries, inject = +bar[b] and g_seed[b]
+// added at t = T-1, and the gradients of both init rows):
 //   d_stay0[b, l] = g[0, l] * w_stay(-1, l)
 //   d_adv0[b, l]  = g[0, l+1] * w_adv(-1, l+1)   (0 at l = L-1)
 // where row -1's weights read stay0[b, l] against adv0[b, l-1] (the
@@ -532,24 +579,25 @@ __host__ __device__ constexpr int shard_floats_per_cell(int chunk) {
 // by cp.async one chunk ahead (two buffers); each chunk's weights are
 // computed from the staged rows before its steps, so a step reads g_next
 // and two weights from shared memory and does the multiply-adds only.
-template <int kChunk>
-__global__ void __launch_bounds__(512)
-    noblank_shard_backward_kernel(const float* __restrict__ alpha,
-                                  const int* __restrict__ inlen,
-                                  const int* __restrict__ tgt,
-                                  const float* __restrict__ bar,
-                                  const float* __restrict__ g_seed,
-                                  const float* __restrict__ stay0,
-                                  const float* __restrict__ adv0,
-                                  float* __restrict__ g,
-                                  float* __restrict__ d_stay0,
-                                  float* __restrict__ d_adv0, int T, int B,
-                                  int L) {
+// With kWarpSteps (rows of up to 32 cells, not kShard) the block stages
+// and weights each chunk, its rows side by side, and warp 0 alone runs the
+// steps: a lane a cell, the carried g in a register, the right
+// neighbour's g[t+1, l+1] * w_adv(t, l+1) by __shfl_down_sync, no barrier
+// a step; the next chunk's first barrier orders its reads of the weights
+// before they are overwritten.
+template <int kChunk, bool kShard, bool kWarpSteps = false>
+__device__ __forceinline__ void noblank_backward_chunked(
+    const float* __restrict__ alpha, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, const float* __restrict__ bar,
+    const float* __restrict__ g_seed, const float* __restrict__ stay0,
+    const float* __restrict__ adv0, float* __restrict__ g,
+    float* __restrict__ d_stay0, float* __restrict__ d_adv0, int T, int B,
+    int L) {
   extern __shared__ float smem[];
   float* chunks = smem;                      // [2][kChunk][L] alpha
   float* weights = chunks + 2 * kChunk * L;  // [kChunk][2][L] stay, adv
   float* rows = weights + 2 * kChunk * L;    // [2][L] carried g
-  float* seed = rows + 2 * L;                // [L] g_seed[b]
+  float* seed = rows + 2 * L;                // [L] g_seed[b] (kShard)
   float* init = seed + L;                    // [2][L] stay0[b], adv0[b]
   float* init_w = init + 2 * L;              // [2][L] row -1's weights
   const int tid = threadIdx.x;
@@ -557,7 +605,7 @@ __global__ void __launch_bounds__(512)
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int t_inject = inlen[b] - 1;
-  const float inject_val = bar[b];
+  const float inject_val = kShard ? bar[b] : -bar[b];
   const size_t row_stride = static_cast<size_t>(B) * L;
   const size_t b_off = static_cast<size_t>(b) * L;
   const float* alpha_b = alpha + b_off;
@@ -592,13 +640,16 @@ __global__ void __launch_bounds__(512)
   };
 
   // group 0: the seed and init rows with chunk 0; group 1: chunk 1
-  for (int l = tid; l < L; l += nt) {
-    cp_async::copy4(seed + l, g_seed + b_off + l);
-    cp_async::copy4(init + l, stay0 + b_off + l);
-    cp_async::copy4(init + L + l, adv0 + b_off + l);
+  if constexpr (kShard) {
+    for (int l = tid; l < L; l += nt) {
+      cp_async::copy4(seed + l, g_seed + b_off + l);
+      cp_async::copy4(init + l, stay0 + b_off + l);
+      cp_async::copy4(init + L + l, adv0 + b_off + l);
+    }
   }
   stage(0);
   stage(1);
+  float g_lane = 0.0f;  // kWarpSteps: warp 0's g[t+1, b, tid]
   for (int c = 0; c < n_chunks; ++c) {
     const int lo = chunk_lo(c);
     const int n = T - c * kChunk - lo;
@@ -620,7 +671,7 @@ __global__ void __launch_bounds__(512)
         w_k[L + l] = (1.0f - w) * in_l;
       }
     }
-    if (c == 0) {
+    if (kShard && c == 0) {
       for (int l = tid; l < L; l += nt) {
         const float adv = (l > 0) ? init[L + l - 1] : kNegSentinel;
         const float w = sigmoid(init[l] - adv);
@@ -631,6 +682,33 @@ __global__ void __launch_bounds__(512)
     }
     // publishes the weights; every read of chunk c's buffer is done
     __syncthreads();
+    if constexpr (kWarpSteps) {
+      stage(c + 2);  // into the buffer this chunk leaves
+      if (tid < 32) {
+        const bool real = tid < L;
+#pragma unroll
+        for (int k = kChunk - 1; k >= 0; --k) {
+          if (k < n) {
+            const int t = lo + k;
+            const float* w_k = weights + 2 * k * L;
+            const float w_stay = real ? w_k[tid] : 0.0f;
+            const float w_adv = real ? w_k[L + tid] : 0.0f;
+            const float inject =
+                (t == t_inject && tid == tgt_b - 1) ? inject_val : 0.0f;
+            float prop = 0.0f;
+            if (t < T - 1) {
+              const float right =
+                  __shfl_down_sync(kFullMask, g_lane * w_adv, 1);
+              const float stay = g_lane * w_stay;
+              prop = stay + ((tid + 1 < L) ? right : 0.0f);
+            }
+            g_lane = inject + prop;
+            if (real) g_b[static_cast<size_t>(t) * row_stride + tid] = g_lane;
+          }
+        }
+      }
+      continue;
+    }
     stage(c + 2);  // into the buffer chunk c leaves
     for (int k = n - 1; k >= 0; --k) {
       const int t = lo + k;
@@ -642,7 +720,7 @@ __global__ void __launch_bounds__(512)
       float* g_t = g_b + static_cast<size_t>(t) * row_stride;
       for (int l = tid; l < L; l += nt) {
         float inject = (t == t_inject && l == tgt_b - 1) ? inject_val : 0.0f;
-        if (t == T - 1) inject += seed[l];
+        if (kShard && t == T - 1) inject += seed[l];
         float prop = 0.0f;
         if (t < T - 1) {
           const float stay = g_next[l] * w_stay[l];
@@ -658,11 +736,210 @@ __global__ void __launch_bounds__(512)
     }
   }
   // g[0], the row the last step wrote, published by that step's barrier
-  const float* g0 = rows + (T & 1) * L;
-  for (int l = tid; l < L; l += nt) {
-    d_stay0[b_off + l] = g0[l] * init_w[l];
-    d_adv0[b_off + l] = (l + 1 < L) ? g0[l + 1] * init_w[L + l + 1] : 0.0f;
+  if constexpr (kShard) {
+    const float* g0 = rows + (T & 1) * L;
+    for (int l = tid; l < L; l += nt) {
+      d_stay0[b_off + l] = g0[l] * init_w[l];
+      d_adv0[b_off + l] = (l + 1 < L) ? g0[l + 1] * init_w[L + l + 1] : 0.0f;
+    }
   }
+}
+
+// The warps layout of the whole-lattice backward, rows of 33 to
+// kBackwardWarpsWidth cells: one block a sample, two cells a lane (cells
+// 2i and 2i+1 of lane i, the row in whole warps), the carried g[t+1, 2i]
+// and g[t+1, 2i+1] in registers.  alpha comes by cp.async into the lane's
+// own columns of a [2][kChunk][2][threads] staging buffer, chunk c+1 in
+// flight while chunk c's steps run; a lane copies and reads only its own
+// cells, so its own wait makes them visible (lane 0 of each warp also
+// stages the cell before the warp's first, kHalo = 1).  A chunk's weights
+// are computed before its steps, into registers: all its alpha rows are
+// read first, then alpha[t, 2i-1] comes from the lane before by
+// __shfl_up_sync (lane 0: its halo cell), then one sigmoid a cell.  A step
+// adds cell 2i+1's advance term to cell 2i in the lane, and takes the next
+// lane's g[t+1, 2i+2] * w_adv(t, 2i+2) for cell 2i+1 by one
+// __shfl_down_sync; lane 31 takes the next warp's lane 0's through a shared
+// exchange slot (two buffers) after the step's one __syncthreads (none in a
+// one-warp row).
+template <int kChunk>
+__device__ __forceinline__ void noblank_backward_warps(
+    const float* __restrict__ alpha, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, const float* __restrict__ bar,
+    float* __restrict__ g, int T, int B, int L) {
+  extern __shared__ float smem[];
+  const int i = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int n_warps = nt >> 5;
+  const int b = blockIdx.x;
+  const int l0 = 2 * i;  // this lane's cells l0 and l0 + 1
+  const bool real0 = l0 < L;
+  const bool real1 = l0 + 1 < L;
+  const bool stage_halo = lane == 0 && l0 > 0;
+  const size_t row_stride = static_cast<size_t>(B) * L;
+  const float* src = alpha + static_cast<size_t>(b) * L + l0;
+  const int chunk_count = (T + kChunk - 1) / kChunk;
+  // [2][kChunk][2][nt] staged cells, [2][kChunk][n_warps] halo cells, and
+  // the [2][n_warps] exchange slots
+  float* halo = smem + 2 * kChunk * 2 * nt;
+  float* xch = halo + 2 * kChunk * n_warps;
+  const unsigned mine = cp_async::shared_address(smem + i);
+  const unsigned mine_halo = cp_async::shared_address(halo + warp);
+  const unsigned slot = 4 * nt;
+  const unsigned halo_slot = 4 * n_warps;
+  auto lo_of = [&](int c) { return max(T - (c + 1) * kChunk, 0); };
+  auto stage = [&](int c) {  // chunk c's cells of this lane, one group
+    if (c < chunk_count) {
+      const int lo = lo_of(c);
+      const int n = T - c * kChunk - lo;
+      const float* row = src + static_cast<size_t>(lo) * row_stride;
+      unsigned dst = mine + (c & 1) * kChunk * 2 * slot;
+      unsigned dst_halo = mine_halo + (c & 1) * kChunk * halo_slot;
+      for (int k = 0; k < n; ++k) {
+        if (real0) cp_async::copy4(dst, row);
+        if (real1) cp_async::copy4(dst + slot, row + 1);
+        if (stage_halo) cp_async::copy4(dst_halo, row - 1);
+        row += row_stride;
+        dst += 2 * slot;
+        dst_halo += halo_slot;
+      }
+    }
+    cp_async::commit();
+  };
+  stage(0);
+  stage(1);
+  // read while the first chunks are in flight
+  const int tgt_b = tgt[b];
+  const int t_inject = inlen[b] - 1;
+  const float bar_b = -bar[b];
+  const float inj0 = (l0 == tgt_b - 1) ? bar_b : 0.0f;
+  const float inj1 = (l0 + 1 == tgt_b - 1) ? bar_b : 0.0f;
+  const float in0 = (l0 < tgt_b) ? 1.0f : 0.0f;
+  const float in1 = (l0 + 1 < tgt_b) ? 1.0f : 0.0f;
+  const bool wide = n_warps > 1;
+  const bool takes_next = lane == 31 && warp + 1 < n_warps;
+  // this warp's exchange slot and the next warp's; a step uses the row at
+  // offset x_row, toggled a step
+  float* x_mine = xch + warp;
+  const float* x_next = xch + warp + 1;
+  int x_row = 0;
+
+  float g0 = 0.0f, g1 = 0.0f;  // g[t+1, b, l0], g[t+1, b, l0+1]
+  float* out = g + static_cast<size_t>(T - 1) * row_stride +
+               static_cast<size_t>(b) * L + l0;  // g[t, b, l0], t = T-1 first
+  for (int c = 0; c < chunk_count; ++c) {
+    const int lo = lo_of(c);
+    const int n = T - c * kChunk - lo;
+    const int u = (c & 1) * kChunk;
+    cp_async::wait<1>();  // this lane's copies of chunk c have landed
+    float a0[kChunk], a1[kChunk], h[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float v0 = smem[((u + k) * 2) * nt + i];
+      const float v1 = smem[((u + k) * 2 + 1) * nt + i];
+      a0[k] = (real0 && k < n) ? v0 : kNegSentinel;
+      a1[k] = (real1 && k < n) ? v1 : kNegSentinel;
+      h[k] = halo[(u + k) * n_warps + warp];  // lane 0's halo cell
+    }
+    stage(c + 2);  // into the buffer this lane has read
+    float w_stay0[kChunk], w_adv0[kChunk], w_stay1[kChunk], w_adv1[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float left = __shfl_up_sync(kFullMask, a1[k], 1);
+      const float a_lm1 =
+          (l0 == 0) ? kNegSentinel : ((lane == 0) ? h[k] : left);
+      const float w0 = sigmoid(a0[k] - a_lm1);
+      const float w1 = sigmoid(a1[k] - a0[k]);
+      w_stay0[k] = w0 * in0;
+      w_adv0[k] = (1.0f - w0) * in0;
+      w_stay1[k] = w1 * in1;
+      w_adv1[k] = (1.0f - w1) * in1;
+    }
+#pragma unroll
+    for (int k = kChunk - 1; k >= 0; --k) {
+      if (k < n) {
+        const int t = lo + k;
+        const bool at_inject = t == t_inject;
+        float prop0 = 0.0f, prop1 = 0.0f;
+        if (t < T - 1) {
+          const float x = g0 * w_adv0[k];
+          float right = __shfl_down_sync(kFullMask, x, 1);
+          if (wide) {
+            if (lane == 0) x_mine[x_row] = x;
+            __syncthreads();
+            if (takes_next) right = x_next[x_row];
+            x_row = n_warps - x_row;
+          }
+          const float stay0 = g0 * w_stay0[k];
+          const float stay1 = g1 * w_stay1[k];
+          prop0 = stay0 + (real1 ? g1 * w_adv1[k] : 0.0f);
+          prop1 = stay1 + ((l0 + 2 < L) ? right : 0.0f);
+        }
+        g0 = (at_inject ? inj0 : 0.0f) + prop0;
+        g1 = (at_inject ? inj1 : 0.0f) + prop1;
+        if (real0) out[0] = g0;
+        if (real1) out[1] = g1;
+        out -= row_stride;
+      }
+    }
+  }
+}
+
+// The whole-lattice backward's layouts (kLayout), picked by the wrapper's
+// plan (ops/lattice_cuda.py::backward_plan, BACKWARD_LAYOUTS):
+constexpr int kRowsLayout = 0;   // noblank_backward_rows
+constexpr int kWarpsLayout = 1;  // noblank_backward_warps<kChunk>
+// noblank_backward_chunked<kChunk, false, true>
+constexpr int kChunksWarpLayout = 2;
+// the widest row of the warps layout: two cells a lane, 16 warps
+constexpr int kBackwardWarpsWidth = 1024;
+// the warps layout's halo cells (before a warp's first) and exchange slots
+// a warp
+constexpr int kBackwardHalo = 1;
+constexpr int kBackwardExchange = 1;
+
+// The most threads a block of each layout may have (its launch bounds).
+__host__ __device__ constexpr int backward_max_threads(int layout) {
+  return layout == kRowsLayout ? 1024 : 512;
+}
+
+template <int kLayout, int kChunk>
+__global__ void __launch_bounds__(backward_max_threads(kLayout))
+    noblank_backward_kernel(const float* __restrict__ alpha,
+                            const int* __restrict__ inlen,
+                            const int* __restrict__ tgt,
+                            const float* __restrict__ bar,
+                            float* __restrict__ g, int T, int B, int L) {
+  if constexpr (kLayout == kWarpsLayout) {
+    noblank_backward_warps<kChunk>(alpha, inlen, tgt, bar, g, T, B, L);
+  } else if constexpr (kLayout == kChunksWarpLayout) {
+    noblank_backward_chunked<kChunk, false, true>(
+        alpha, inlen, tgt, bar, nullptr, nullptr, nullptr, g, nullptr,
+        nullptr, T, B, L);
+  } else {
+    noblank_backward_rows(alpha, inlen, tgt, bar, g, T, B, L);
+  }
+}
+
+// One T-shard's reverse recursion and the gradients of both init rows, in
+// one launch (noblank_backward_chunked<kChunk, true>).
+template <int kChunk>
+__global__ void __launch_bounds__(512)
+    noblank_shard_backward_kernel(const float* __restrict__ alpha,
+                                  const int* __restrict__ inlen,
+                                  const int* __restrict__ tgt,
+                                  const float* __restrict__ bar,
+                                  const float* __restrict__ g_seed,
+                                  const float* __restrict__ stay0,
+                                  const float* __restrict__ adv0,
+                                  float* __restrict__ g,
+                                  float* __restrict__ d_stay0,
+                                  float* __restrict__ d_adv0, int T, int B,
+                                  int L) {
+  noblank_backward_chunked<kChunk, true>(alpha, inlen, tgt, bar, g_seed,
+                                         stay0, adv0, g, d_stay0, d_adv0, T,
+                                         B, L);
 }
 
 int block_threads(int L) {
@@ -764,17 +1041,79 @@ cudaError_t launch_shard_forward(const float* em, const int* inlen,
   }
 }
 
-cudaError_t launch_backward(const float* alpha, const int* inlen,
-                            const int* tgt, const float* bar, float* g, int T,
-                            int B, int L, cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
-  cudaError_t err = prepare(
-      reinterpret_cast<const void*>(noblank_backward_kernel), smem);
+// Shared bytes of a whole-lattice backward block in layout `layout`: the
+// warps layout's staging columns, halo cells and exchange slots; the
+// chunks-warp layout's chunked_floats_per_cell floats a cell; the rows
+// layout's two rows.
+size_t backward_bytes(int layout, int L, int chunk, int threads) {
+  if (layout == kWarpsLayout) {
+    const size_t warps = threads / 32;
+    return sizeof(float) * 2 *
+           (static_cast<size_t>(chunk) *
+                (2 * threads + warps * kBackwardHalo) +
+            warps * kBackwardExchange);
+  }
+  if (layout == kChunksWarpLayout) {
+    return sizeof(float) * static_cast<size_t>(L) *
+           chunked_floats_per_cell(chunk);
+  }
+  return sizeof(float) * 2 * static_cast<size_t>(L);
+}
+
+// Whether a block of `threads` in `layout` fits rows of L cells: the
+// warps layout takes a row of up to kBackwardWarpsWidth cells, two a
+// lane, in whole warps; the chunks-warp layout rows of up to one warp.
+bool threads_fit(int layout, int L, int threads) {
+  if (layout == kWarpsLayout) {
+    return L <= kBackwardWarpsWidth && threads == 32 * ((L + 63) / 64);
+  }
+  return layout != kChunksWarpLayout || L <= 32;
+}
+
+template <int kLayout, int kChunk>
+cudaError_t launch_backward_layout(const float* alpha, const int* inlen,
+                                   const int* tgt, const float* bar, float* g,
+                                   int T, int B, int L, int threads,
+                                   size_t smem, cudaStream_t stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(noblank_backward_kernel<kLayout, kChunk>);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  noblank_backward_kernel<<<B, block_threads(L), smem, stream>>>(
+  noblank_backward_kernel<kLayout, kChunk><<<B, threads, smem, stream>>>(
       alpha, inlen, tgt, bar, g, T, B, L);
   return cudaGetLastError();
+}
+
+// The plan (layout, chunk, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::backward_plan).  A layout or chunk the kernel is
+// not built for, a block past the layout's launch bounds or that does not
+// fit the row (threads_fit), or shared bytes that do not match the layout
+// are refused.
+cudaError_t launch_backward(const float* alpha, const int* inlen,
+                            const int* tgt, const float* bar, float* g, int T,
+                            int B, int L, int layout, int chunk, int threads,
+                            int smem, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
+  const size_t bytes = static_cast<size_t>(smem);
+  if (layout < kRowsLayout || layout > kChunksWarpLayout || threads < 32 ||
+      threads % 32 != 0 || threads > backward_max_threads(layout) ||
+      !threads_fit(layout, L, threads) ||
+      bytes != backward_bytes(layout, L, chunk, threads)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (layout * 32 + chunk) {
+    case kWarpsLayout * 32 + 8:
+      return launch_backward_layout<kWarpsLayout, 8>(
+          alpha, inlen, tgt, bar, g, T, B, L, threads, bytes, stream);
+    case kChunksWarpLayout * 32 + 16:
+      return launch_backward_layout<kChunksWarpLayout, 16>(
+          alpha, inlen, tgt, bar, g, T, B, L, threads, bytes, stream);
+    case kRowsLayout * 32 + 0:
+      return launch_backward_layout<kRowsLayout, 0>(
+          alpha, inlen, tgt, bar, g, T, B, L, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kChunk>
@@ -838,11 +1177,14 @@ cudaError_t noblank_lattice_forward(const float* em, const int* tgt,
   return launch_forward(em, tgt, alpha, T, B, L, stream);
 }
 
+// layout, chunk, threads and smem are the wrapper's plan.
 cudaError_t noblank_lattice_backward(const float* alpha, const int* inlen,
                                      const int* tgt, const float* nll_bar,
                                      float* g, int T, int B, int L,
-                                     cudaStream_t stream) {
-  return launch_backward(alpha, inlen, tgt, nll_bar, g, T, B, L, stream);
+                                     int layout, int chunk, int threads,
+                                     int smem, cudaStream_t stream) {
+  return launch_backward(alpha, inlen, tgt, nll_bar, g, T, B, L, layout,
+                         chunk, threads, smem, stream);
 }
 
 // One T-shard: inlen is shard-local, stay0 / adv0 are the [B, L] init

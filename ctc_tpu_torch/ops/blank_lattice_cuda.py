@@ -45,6 +45,8 @@ from ctc_tpu_torch.ops.lattice_cuda import (
     _require,
     _require_rows,
     _to_tbl,
+    backward_dims,
+    backward_plan,
     launch,
     rows_layout,
     shard_backward_plan,
@@ -242,13 +244,16 @@ def blank_alpha_kernel(em, skip_ok):
 
 def blank_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
                       nll_bar):
-    """Launch the backward kernel: g ``[T, B, S]`` from alpha."""
+    """Launch the backward kernel: g ``[T, B, S]`` from alpha, in
+    :func:`~ctc_tpu_torch.ops.lattice_cuda.backward_plan`'s layout for the
+    width."""
+    plan = backward_plan(alpha.shape[2], blank=True)
     _require("blank_lattice_backward", alpha=alpha, skip_ok=skip_ok,
              input_lengths=input_lengths, target_lengths=target_lengths,
              nll_bar=nll_bar)
     return launch(_SOURCE, "blank_lattice_backward", launch_counts,
                   (alpha, skip_ok, input_lengths, target_lengths, nll_bar),
-                  torch.empty_like(alpha), alpha.shape)
+                  torch.empty_like(alpha), backward_dims(alpha.shape, plan))
 
 
 def blank_shard_forward_kernel(em, skip_ok, input_lengths, target_lengths,

@@ -35,8 +35,9 @@ SIGNATURES = {
     "noblank_lattice.cu": {
         # em, tgt, alpha, T, B, L, stream
         "noblank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
-        # alpha, inlen, tgt, nll_bar, g, T, B, L, stream
-        "noblank_lattice_backward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # alpha, inlen, tgt, nll_bar, g, T, B, L, layout, chunk, threads,
+        # shared bytes, stream
+        "noblank_lattice_backward": (*(_P,) * 5, *(_I,) * 7, _P),
         # em, inlen, tgt, stay0, adv0, alpha, final, boundary, T, B, L,
         # em row stride, depth, threads, shared bytes, stream
         "noblank_shard_forward": (*(_P,) * 8, *(_I,) * 7, _P),
@@ -47,8 +48,9 @@ SIGNATURES = {
     "blank_lattice.cu": {
         # em, skip_ok, alpha, T, B, S, stream
         "blank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
-        # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, stream
-        "blank_lattice_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, layout, chunk,
+        # threads, shared bytes, stream
+        "blank_lattice_backward": (*(_P,) * 6, *(_I,) * 7, _P),
         # em, skip_ok, inlen, tgt, init0, skip0, alpha, final, boundary, T,
         # B, S, em row stride, depth, threads, shared bytes, stream
         "blank_shard_forward": (*(_P,) * 9, *(_I,) * 7, _P),

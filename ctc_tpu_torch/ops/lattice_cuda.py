@@ -33,6 +33,8 @@ and the sentinel row.
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from ctc_tpu_torch.ops.logspace import NEG_SENTINEL
@@ -62,6 +64,30 @@ SHARD_FORWARD_STATIC_BYTES = 16
 #: kHalo), noblank and blank: a warp of a row wider than 32 cells owns
 #: 32 - halo cells and carries the halo before them
 WARPS_HALO = {False: 8, True: 16}
+#: the whole-lattice backward kernels' layouts, in the order of the
+#: kernels' kLayout: the row loop (alpha read in the step); two cells a
+#: lane, one block a sample (warps); alpha staged in chunks and weighted by
+#: the block, stepped by one warp (chunks_warp)
+BACKWARD_LAYOUTS = ("rows", "warps", "chunks_warp")
+#: the widest row of the chunks-warp layout (one warp) and of the warps
+#: layout (16 warps of two cells a lane)
+BACKWARD_NARROW_WIDTH = 32
+BACKWARD_WARPS_WIDTH = 1024
+#: the chunks-warp layout's block and alpha chunk (rows), and the warps
+#: layout's alpha chunk (its weights live in registers)
+BACKWARD_NARROW_THREADS = 128
+BACKWARD_NARROW_CHUNK = 16
+BACKWARD_WARPS_CHUNK = 8
+#: the most threads of a block of the rows layout (its launch bounds)
+BACKWARD_ROWS_THREADS = 1024
+
+
+def lattice_kernel_symbol(family: str) -> re.Pattern:
+    """The profiler names of ``family``'s (``noblank`` or ``blank``)
+    lattice kernels, the forward and backward and their shard twins, whose
+    device time a profile's ``lattice_us_per_step`` sums."""
+    return re.compile(rf"(?<![a-z]){family}_(shard_)?(forward|backward)"
+                      r"_kernel")
 
 
 def reset_launch_counts() -> None:
@@ -254,14 +280,79 @@ def noblank_alpha_kernel(em, target_lengths):
                   (em, target_lengths), torch.empty_like(em), em.shape)
 
 
+def backward_bytes(layout: str, width: int, chunk: int, threads: int,
+                   blank: bool = False) -> int:
+    """Dynamic shared memory of a whole-lattice backward launch in
+    ``layout``: in the warps layout each thread's two staging columns of
+    ``chunk`` rows of two cells, two of ``chunk`` rows of 1 (blank 2) halo
+    cells a warp and two exchange rows of 1 (blank 3) slots a warp (the
+    kernels' ``kBackwardHalo``, ``kBackwardExchange``); in the chunks-warp
+    layout two staged alpha chunks, the chunk's 2 (blank 3) weight rows a
+    row and the carried g double buffer, ``(4 + blank) * chunk + 2`` floats
+    a cell (the kernels' ``chunked_floats_per_cell``); in the rows layout
+    the two carried rows; blank adds the skip mask's byte a cell to the
+    last two."""
+    if layout == "warps":
+        warps = threads // 32
+        return 4 * 2 * (chunk * (2 * threads + warps * (1 + blank))
+                        + warps * (1 + 2 * blank))
+    if layout == "chunks_warp":
+        return (4 * ((4 + blank) * chunk + 2) + blank) * width
+    if layout == "rows":
+        return (4 * 2 + blank) * width
+    raise ValueError(f"unknown backward layout {layout!r}: "
+                     f"{', '.join(BACKWARD_LAYOUTS)}")
+
+
+def backward_plan(width: int,
+                  blank: bool = False) -> tuple[str, int, int, int]:
+    """``(layout, chunk, threads, shared bytes)`` of the noblank (``blank``
+    False) or blank whole-lattice backward kernel at lattice width
+    ``width``.
+
+    Rows of up to ``BACKWARD_NARROW_WIDTH`` cells take the chunks-warp
+    layout (``BACKWARD_NARROW_THREADS`` threads stage and weight 16-row
+    chunks, one warp steps); rows of up to ``BACKWARD_WARPS_WIDTH`` the
+    warps layout (two cells a lane, in whole warps, 8-row chunks).
+    Wider rows take the rows layout (the first kernels' row loop, the row
+    in whole warps up to ``BACKWARD_ROWS_THREADS``, which stride over wider
+    rows) up to the widths whose two rows fit in ``SMEM_LIMIT`` (29056
+    noblank, 25827 blank), every width the first kernels took; raises
+    ``ValueError`` above them."""
+    row_threads = -(-width // 32) * 32
+    if width <= BACKWARD_NARROW_WIDTH:
+        chunk, threads = BACKWARD_NARROW_CHUNK, BACKWARD_NARROW_THREADS
+        return ("chunks_warp", chunk, threads,
+                backward_bytes("chunks_warp", width, chunk, threads, blank))
+    if width <= BACKWARD_WARPS_WIDTH:
+        chunk, threads = BACKWARD_WARPS_CHUNK, -(-width // 64) * 32
+        return ("warps", chunk, threads,
+                backward_bytes("warps", width, chunk, threads, blank))
+    smem = backward_bytes("rows", width, 0, 0, blank)
+    if smem <= SMEM_LIMIT:
+        return ("rows", 0, min(row_threads, BACKWARD_ROWS_THREADS), smem)
+    raise ValueError(
+        f"lattice width {width}: the backward's two carried rows do not fit "
+        f"in the {SMEM_LIMIT} bytes of shared memory a block may use")
+
+
+def backward_dims(shape, plan) -> tuple[int, ...]:
+    """The int arguments of a whole-lattice backward launch: ``T, B, W``,
+    then ``plan`` with its layout as the kernels' number."""
+    layout, chunk, threads, smem = plan
+    return (*shape, BACKWARD_LAYOUTS.index(layout), chunk, threads, smem)
+
+
 def noblank_grad_kernel(alpha, input_lengths, target_lengths, nll_bar):
-    """Launch the backward kernel: g ``[T, B, L]`` from alpha."""
+    """Launch the backward kernel: g ``[T, B, L]`` from alpha, in
+    :func:`backward_plan`'s layout for the width."""
+    plan = backward_plan(alpha.shape[2])
     _require("noblank_lattice_backward", alpha=alpha,
              input_lengths=input_lengths, target_lengths=target_lengths,
              nll_bar=nll_bar)
     return launch(_SOURCE, "noblank_lattice_backward", launch_counts,
                   (alpha, input_lengths, target_lengths, nll_bar),
-                  torch.empty_like(alpha), alpha.shape)
+                  torch.empty_like(alpha), backward_dims(alpha.shape, plan))
 
 
 def shard_forward_threads(width: int, blank: bool = False) -> int | None:

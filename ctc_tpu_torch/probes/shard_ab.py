@@ -26,8 +26,9 @@ of the seq train step at the main path's shape (T=64, B=256, 4 shards;
 noblank 8 microbatches, blank 4; the shard ops' forward done each way, the
 rest unchanged; 20 steps after 5 warm-up, in turns): host ms per step,
 and from a profiled window of the same steps, device ms per step, device
-kernels per step and the device's busy share.  The first line is the
-card's name and power limit.  Card only.
+kernels per step, the device's busy share and the lattice kernels' device
+us per step.  The first line is the card's name and power limit.  Card
+only.
 """
 
 from __future__ import annotations
@@ -70,12 +71,14 @@ OLD_SIGNATURES = {"noblank": (*(_P,) * 5, _I, _I, _I, _P),
                   "blank": (*(_P,) * 5, _I, _I, _I, _P)}
 
 
-def build_parent(parent: Path, symbol="shard_forward", edit=None,
-                 tag="") -> dict[str, ctypes.CDLL]:
+def build_parent(parent: Path, symbol="shard_forward", edit=None, tag="",
+                 signatures=None) -> dict[str, ctypes.CDLL]:
     """Compile both lattice sources of ``parent`` (with ``edit(text,
     family)`` applied, where given), one ``nvcc`` each, all started
-    together; return each family's library with its ``*_<symbol>``
-    launcher typed as ``OLD_SIGNATURES``."""
+    together, into libraries named with ``tag``; return each family's
+    library with its ``*_<symbol>`` launcher typed as ``signatures[family]``
+    (default ``OLD_SIGNATURES``, the shard forward's)."""
+    signatures = signatures or OLD_SIGNATURES
     PARENT_BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for family in OLD_SIGNATURES:
@@ -97,7 +100,7 @@ def build_parent(parent: Path, symbol="shard_forward", edit=None,
             raise RuntimeError(f"nvcc failed on the parent's {family}:\n{log}")
         lib = ctypes.CDLL(str(out))
         fn = getattr(lib, f"{family}_{symbol}")
-        fn.argtypes = list(OLD_SIGNATURES[family])
+        fn.argtypes = list(signatures[family])
         fn.restype = ctypes.c_int
         libs[family] = lib
     return libs
@@ -247,10 +250,13 @@ def kernels(family, shape, old_fwd, card):
     return rows
 
 
-def seq_step(family, steps=20):
-    """A seq train step at ``STEP_SHAPE`` and a call that runs ``steps``
-    of them and returns ``(host ms per step, device ms per step, kernels
-    per step, busy share)``."""
+def train_step(family, shape, microbatches=None, steps=20):
+    """A train step at ``shape`` (T, B, L; the sequence-sharded loss over 4
+    shards with ``microbatches``, else the unsharded one) and a call that
+    runs ``steps`` of them and returns ``(host ms per step, device ms per
+    step, kernels per step, busy share, lattice kernels' device us per
+    step)``; the lattice kernels are those
+    :func:`~ctc_tpu_torch.ops.lattice_cuda.lattice_kernel_symbol` names."""
     from torch.profiler import ProfilerActivity, profile
 
     from ctc_tpu_torch.data import synthetic_feature_batches
@@ -260,7 +266,7 @@ def seq_step(family, steps=20):
         TrainState, make_train_step, to_device, torch_style_adam,
     )
 
-    T, B, L, M = STEP_SHAPE[family]
+    T, B, L = shape
     classes = CLASSES[family]
     batch = to_device(synthetic_feature_batches(
         num_batches=1, batch_size=B, temporal=T, feat_dim=1024,
@@ -269,11 +275,14 @@ def seq_step(family, steps=20):
     model.reset_parameters(torch.Generator().manual_seed(0))
     model.to("cuda")
     state = TrainState(model, torch_style_adam(model.parameters(), 1e-4))
-    loss_fn = make_seq_sharded_loss(make_seq_mesh(4, "cuda"), family,
-                                    num_microbatches=M)
+    loss_fn = None
+    if microbatches:
+        loss_fn = make_seq_sharded_loss(make_seq_mesh(4, "cuda"), family,
+                                        num_microbatches=microbatches)
     step = make_train_step(family, None, 0.0, lambda k: 1e-3,
                            loss_fn=loss_fn)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    symbol = lc.lattice_kernel_symbol(family)
 
     def run():
         for _ in range(5):
@@ -293,8 +302,11 @@ def seq_step(family, steps=20):
             window_ms = (time.perf_counter() - t0) * 1e3
         events = device_events(prof)
         busy_ms = sum(_device_us(e) for e in events) / 1e3
+        lattice_us = sum(_device_us(e) for e in events
+                         if symbol.search(e.key))
         return (host_ms, busy_ms / steps,
-                sum(e.count for e in events) / steps, busy_ms / window_ms)
+                sum(e.count for e in events) / steps, busy_ms / window_ms,
+                lattice_us / steps)
 
     return run
 
@@ -304,7 +316,8 @@ def steps(family, old_fwd, card):
     module = lc if family == "noblank" else bl
     name = f"{family}_shard_forward_kernel"
     new_fwd = getattr(module, name)
-    run = seq_step(family)
+    T, B, L, M = STEP_SHAPE[family]
+    run = train_step(family, (T, B, L), M)
     runs = {"before": [], "after": []}
     for side in ("before", "after", "after", "before"):
         setattr(module, name, old_fwd if side == "before" else new_fwd)
@@ -318,7 +331,8 @@ def steps(family, old_fwd, card):
              "step_ms_runs": [r[0] for r in got],
              "device_ms_per_step_runs": [r[1] for r in got],
              "kernels_per_step_runs": [r[2] for r in got],
-             "device_busy_share_runs": [r[3] for r in got], "card": card}
+             "device_busy_share_runs": [r[3] for r in got],
+             "lattice_us_per_step_runs": [r[4] for r in got], "card": card}
             for side, got in runs.items()]
 
 
