@@ -178,7 +178,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def make_case(gen, shape, *, degenerate=False, device):
+def make_case(gen, shape, *, degenerate=False, outside=False, device):
+    """em, input and target lengths and a cotangent; with ``outside``,
+    samples 1 and 2 get input lengths 0 and T + 1 (outside [1, T]: their
+    NLL is 0)."""
     import torch
 
     T, B, L = shape
@@ -190,8 +193,20 @@ def make_case(gen, shape, *, degenerate=False, device):
         inlen[1] = min(3, T)
     else:
         tgt = torch.minimum(tgt, inlen)
+    if outside and B >= 3:
+        inlen[1], inlen[2] = 0, T + 1
     cot = torch.randn((B,), generator=gen)
     return [x.to(device) for x in (em, inlen, tgt, cot)]
+
+
+def check_outside_zero(name, nll, inlen, T):
+    """The kernel-written NLL is 0 where the input length lies outside [1,
+    T]; returns how many such samples there were."""
+    out = (inlen < 1) | (inlen > T)
+    if bool((nll[out] != 0).any()):
+        fail(f"{name}: kernel nll nonzero where input_length is outside "
+             f"[1, {T}]")
+    return int(out.sum())
 
 
 def max_dev(a, b):
@@ -224,8 +239,10 @@ def phase_build():
 
 
 def phase_parity():
-    """Each kernel against the plain version on the card: NLL (forward),
-    reachable alpha cells, and d nll / d em under a random cotangent."""
+    """Each kernel against the plain version on the card: the NLL the
+    forward kernel writes against ``gather_nll`` of the plain alpha (0
+    where the input length lies outside [1, T]), reachable alpha cells, and
+    d nll / d em under a random cotangent."""
     import torch
 
     from ctc_tpu_torch.ops import lattice_cuda as lc
@@ -244,7 +261,8 @@ def phase_parity():
         # sides of the chunks-warp layout's widest row (T past a chunk) and
         # of the warps layout's; the rows layout with its threads striding
         # unevenly, past the widest row the shard backward's chunks take
-        # (5282) and at the widest the first kernels took; T = 1
+        # (5282) and at the widest the first kernels took; T = 1.  The
+        # forward's (lc.forward_plan) end at the same 32 and 1024 cells
         ("narrow_widest", (37, 5, 32), False),
         ("wide_narrowest", (37, 6, 33), False),
         ("warps_widest", (5, 2, 1024), False),
@@ -253,21 +271,41 @@ def phase_parity():
         ("rows_past_shard", (2, 2, 5283), False),
         ("rows_widest", (2, 1, 29056), False),
         ("T1", (1, 9, 10), False),
+        # the forward's layouts at their edges, with input lengths outside
+        # [1, T]: the pairs layout in one warp at its widest and in two;
+        # T one below, at and one past the em ring's depth (8); samples not
+        # filling the warp layout's last block; both sides of the block
+        # layout's 8-row ring's end and of its own
+        ("fwd_pairs_one_warp", (9, 5, 63), "outside"),
+        ("fwd_pairs_two_warps", (9, 5, 64), "outside"),
+        ("fwd_T7", (7, 9, 10), "outside"),
+        ("fwd_T8", (8, 5, 157), "outside"),
+        ("fwd_T9", (9, 13, 32), "outside"),
+        ("fwd_warp_widest", (12, 11, 32), "outside"),
+        ("fwd_pairs_first", (12, 5, 33), "outside"),
+        ("fwd_pairs_widest", (6, 3, 1024), "outside"),
+        ("fwd_block_first", (6, 3, 1025), "outside"),
+        ("fwd_block_deep_widest", (3, 3, 5810), "outside"),
+        ("fwd_block_shallow", (3, 3, 5811), "outside"),
+        ("fwd_block_widest", (2, 3, 14527), "outside"),
+        ("fwd_rows_first", (2, 3, 14528), "outside"),
     ]
     errs = {}
-    for label, shape, degenerate in cases:
-        em, inlen, tgt, cot = make_case(gen, shape, degenerate=degenerate,
+    for label, shape, flag in cases:
+        em, inlen, tgt, cot = make_case(gen, shape,
+                                        degenerate=flag is True,
+                                        outside=flag == "outside",
                                         device=dev)
         inlen32, tgt32 = inlen.int(), tgt.int()
-        alpha_k = lc.noblank_alpha_kernel(em, tgt32)
+        alpha_k, nll_k = lc.noblank_alpha_kernel(em, inlen32, tgt32)
         alpha_p = lc.noblank_alpha_plain(em, tgt32)
-        nll_k = lc.gather_nll(alpha_k, inlen32, tgt32)
         nll_p = lc.gather_nll(alpha_p, inlen32, tgt32)
         g_k = lc.noblank_grad_kernel(alpha_k, inlen32, tgt32, cot)
         g_p = lc.noblank_grad_plain(alpha_p, inlen32, tgt32, cot)
         torch.cuda.synchronize()
         reach = alpha_p > -1e12  # cells a path reaches (others hold ~-1e13)
         check_close(f"{label} nll", nll_k, nll_p, LOSS_RTOL, LOSS_ATOL)
+        outside = check_outside_zero(label, nll_k, inlen, shape[0])
         check_close(f"{label} alpha", alpha_k[reach], alpha_p[reach],
                     LOSS_RTOL, LOSS_ATOL)
         check_close(f"{label} grad", g_k, g_p, GRAD_RTOL, GRAD_ATOL)
@@ -284,7 +322,9 @@ def phase_parity():
                     GRAD_ATOL)
         row = {
             "phase": "parity", "case": label, "shape_TBL": list(shape),
+            "forward_plan": list(lc.forward_plan(shape[2])),
             "backward_plan": list(lc.backward_plan(shape[2])),
+            "nll_outside_samples_zero": outside,
             "nll_max_abs_dev": max_dev(nll_k, nll_p),
             "nll_max_rel_dev": float(((nll_k - nll_p).abs()
                                       / nll_p.abs().clamp_min(1e-30)).max()),
@@ -330,12 +370,13 @@ def expect_counts(noblank=(0, 0), blank=(0, 0), noblank_shard=(0, 0),
 
 def make_blank_case(gen, shape, *, device, classes=BLANK_CLASSES,
                     repeats=False, label0=False, zero_len=False, short=False,
-                    infeasible=False):
+                    infeasible=False, outside=False):
     """Raw gathered emissions ``[T, B, S]`` from random logits, the uint8
     skip mask, int32 lengths and a cotangent, on ``device``.  Sample 0 has
     the full T and L; the flags add repeated labels, labels equal to the
-    blank id 0, zero-length targets, input lengths 1 and 2, and one
-    infeasible sample (fewer frames than its labels need)."""
+    blank id 0, zero-length targets, input lengths 1 and 2, one infeasible
+    sample (fewer frames than its labels need), and input lengths 0 and T
+    + 1 (outside [1, T]) at samples 1 and 2."""
     import torch
 
     from ctc_tpu_torch.losses.blank import blank_emissions_and_skip
@@ -358,6 +399,8 @@ def make_blank_case(gen, shape, *, device, classes=BLANK_CLASSES,
         inlen[3], tgt[3] = max(L // 2, 1), L
     if zero_len and B >= 5:
         tgt[4] = 0
+    if outside and B >= 3:
+        inlen[1], inlen[2] = 0, T + 1
     em, skip = blank_emissions_and_skip(logits, targets, 0)
     cot = torch.randn((B,), generator=gen)
     return [x.to(device) for x in (em.contiguous(), skip.to(torch.uint8),
@@ -365,13 +408,15 @@ def make_blank_case(gen, shape, *, device, classes=BLANK_CLASSES,
 
 
 def phase_parity_blank():
-    """Each blank kernel against the plain version on the card: NLL,
-    reachable alpha cells, d nll / d em under a random cotangent, the
-    autograd op, and exact zeros at t >= input length."""
+    """Each blank kernel against the plain version on the card: the NLL the
+    forward kernel writes against ``gather_nll`` of the plain alpha (0
+    where the input length lies outside [1, T]), reachable alpha cells, d
+    nll / d em under a random cotangent, the autograd op, and exact zeros
+    at t >= input length."""
     import torch
 
     from ctc_tpu_torch.ops import blank_lattice_cuda as bl
-    from ctc_tpu_torch.ops.lattice_cuda import backward_plan
+    from ctc_tpu_torch.ops.lattice_cuda import backward_plan, forward_plan
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
@@ -401,20 +446,39 @@ def phase_parity_blank():
         ("rows_past_shard", (2, 2, 2193), {}),
         ("rows_widest", (2, 1, 12913), {}),
         ("T1", (1, 9, 5), {}),
+        # the forward's layouts at their edges (lc.forward_plan; S = 63, 65,
+        # 41 at T one below, at and one past the em ring's depth, 31, 33,
+        # 1023, 1025, 5669, 5671, 13671, 13673), with input lengths outside
+        # [1, T] and zero-length targets; samples not filling the warp
+        # layout's last block
+        ("fwd_pairs_one_warp", (9, 5, 31), dict(outside=True)),
+        ("fwd_pairs_two_warps", (9, 5, 32), dict(outside=True)),
+        ("fwd_T7", (7, 9, 5), dict(outside=True, zero_len=True)),
+        ("fwd_T8", (8, 5, 20), dict(outside=True)),
+        ("fwd_T9", (9, 13, 15), dict(outside=True, zero_len=True)),
+        ("fwd_warp_widest", (12, 11, 15), dict(outside=True)),
+        ("fwd_pairs_first", (12, 5, 16), dict(outside=True, zero_len=True)),
+        ("fwd_pairs_widest", (6, 3, 511), dict(outside=True)),
+        ("fwd_block_first", (6, 3, 512), dict(outside=True)),
+        ("fwd_block_deep_widest", (3, 3, 2834), dict(outside=True)),
+        ("fwd_block_shallow", (3, 3, 2835), dict(outside=True)),
+        ("fwd_block_widest", (2, 3, 6835), dict(outside=True)),
+        ("fwd_rows_first", (2, 3, 6836), dict(outside=True)),
     ]
     errs = {}
     for label, shape, flags in cases:
         em, skip, inlen, tgt, cot = make_blank_case(gen, shape, device=dev,
                                                     **flags)
-        alpha_k = bl.blank_alpha_kernel(em, skip)
+        alpha_k, nll_k = bl.blank_alpha_kernel(em, skip, inlen, tgt)
         alpha_p = bl.blank_alpha_plain(em, skip)
-        nll_k = bl.gather_nll(alpha_k, inlen, tgt)
         nll_p = bl.gather_nll(alpha_p, inlen, tgt)
         g_k = bl.blank_grad_kernel(alpha_k, skip, inlen, tgt, cot)
         g_p = bl.blank_grad_plain(alpha_p, skip, inlen, tgt, cot)
         torch.cuda.synchronize()
         reach = alpha_p > -1e29  # unreachable cells hold ~-1e30
         check_close(f"blank {label} nll", nll_k, nll_p, LOSS_RTOL, LOSS_ATOL)
+        outside = check_outside_zero(f"blank {label}", nll_k, inlen,
+                                     shape[0])
         check_close(f"blank {label} alpha", alpha_k[reach], alpha_p[reach],
                     LOSS_RTOL, LOSS_ATOL)
         check_close(f"blank {label} grad", g_k, g_p, GRAD_RTOL, GRAD_ATOL)
@@ -433,7 +497,9 @@ def phase_parity_blank():
         row = {
             "phase": "parity_blank", "case": label,
             "shape_TBL": list(shape), "S": 2 * shape[2] + 1,
+            "forward_plan": list(forward_plan(2 * shape[2] + 1, True)),
             "backward_plan": list(backward_plan(2 * shape[2] + 1, True)),
+            "nll_outside_samples_zero": outside,
             "nll_max_abs_dev": max_dev(nll_k, nll_p),
             "nll_max_rel_dev": float(((nll_k - nll_p).abs()
                                       / nll_p.abs().clamp_min(1e-30)).max()),
@@ -802,15 +868,15 @@ def phase_times(card, name):
         T, B, L = shape
         em, inlen, tgt, cot = make_case(gen, shape, device="cuda")
         inlen, tgt = inlen.int(), tgt.int()
-        alpha = lc.noblank_alpha_kernel(em, tgt)
+        alpha, _ = lc.noblank_alpha_kernel(em, inlen, tgt)
         cells = T * B * L
         fns = {
             "noblank_lattice_forward": (
                 "noblank_forward_kernel",
-                lambda: lc.noblank_alpha_kernel(em, tgt),
+                lambda: lc.noblank_alpha_kernel(em, inlen, tgt),
                 lambda: lc.noblank_alpha_plain(em, tgt),
-                # em in, alpha out, target lengths in
-                8 * cells + 4 * B,
+                # em in, alpha out, both length vectors in, nll out
+                8 * cells + 12 * B,
                 # max, sub, abs, exp, log1p, add, select, add
                 8 * cells,
             ),
@@ -848,6 +914,8 @@ def phase_times(card, name):
             }
             if kname.endswith("backward"):
                 row["backward_plan"] = list(lc.backward_plan(L))
+            else:
+                row["forward_plan"] = list(lc.forward_plan(L))
             emit(row)
             result[(kname, label)] = row
     return result
@@ -888,7 +956,7 @@ def phase_times_blank(card, name):
         cot = torch.randn((B,), generator=gen).to("cuda")
         em, skip = blank_emissions_and_skip(lp, targets, 0)
         em, skip = em.contiguous(), skip.to(torch.uint8)
-        alpha = bl.blank_alpha_kernel(em, skip)
+        alpha, _ = bl.blank_alpha_kernel(em, skip, inlen, tgt)
         cells = T * B * S
         # the yardstick on the same log-probs: forward, and backward alone
         lp_req = lp.clone().requires_grad_()
@@ -932,10 +1000,11 @@ def phase_times_blank(card, name):
         fns = {
             "blank_lattice_forward": (
                 "blank_forward_kernel",
-                lambda: bl.blank_alpha_kernel(em, skip),
+                lambda: bl.blank_alpha_kernel(em, skip, inlen, tgt),
                 lambda: bl.blank_alpha_plain(em, skip),
-                # em in, skip mask in, alpha out
-                8 * cells + B * S,
+                # em in, skip mask in, alpha out, both length vectors in,
+                # nll out
+                8 * cells + B * S + 12 * B,
                 # two log-adds (max, sub, abs, exp, log1p, add), the skip
                 # select, the emission add
                 14 * cells,
@@ -978,6 +1047,8 @@ def phase_times_blank(card, name):
             }
             if kname.endswith("backward"):
                 row["backward_plan"] = list(lc.backward_plan(S, True))
+            else:
+                row["forward_plan"] = list(lc.forward_plan(S, True))
             emit(row)
             result[(kname, label)] = row
     return result

@@ -16,14 +16,32 @@
 // recursion is sequential in T, so at small B the real limit is the latency
 // of T dependent steps inside one block.
 //
-// Design of the forward (and of the backward's rows layout; that of
-// noblank_lattice.cu): one thread block per sample b, threads across the
-// slots s (strided when S exceeds the block).  The block
-// walks all of T itself; the carried row lives in a shared-memory double
-// buffer, so each step costs one __syncthreads and the s-1 / s-2 (forward)
-// and s+1 / s+2 (backward) neighbour reads never race the write of the next
-// row.  The sample's skip row is staged in shared memory once.  Row reads
-// and writes of [t, b, :] are contiguous in s, so warps coalesce.
+// The first kernels' design (that of noblank_lattice.cu), kept as the rows
+// layout of both whole-lattice kernels for the widest rows: one thread
+// block per sample b, threads across the slots s (strided when S exceeds
+// the block), the carried row in a shared-memory double buffer, one
+// __syncthreads a step, the sample's skip row staged in shared memory once.
+//
+// The whole-lattice forward (blank_forward_kernel<kLayout, kDepth>, entry
+// blank_lattice_forward) first ran that loop with em[t] read inside each
+// step: 4.3 us at T=10, B=256, S=11 and 0.067 ms at T=128, B=1024, S=41,
+// and the op gathered the NLL after it with about twenty torch kernels.  It
+// now writes nll[b] = -logaddexp(alpha[t_f, b, 2 tgt], alpha[t_f, b, 2 tgt
+// - 1]) (the first cell alone when tgt = 0; 0 where inlen lies outside [1,
+// T]) itself, stages em on a per-thread cp.async ring 8 rows ahead, and has
+// noblank_lattice.cu's layouts by width: warp up to 32 slots (a sample a
+// warp, the two final cells joined by __shfl_sync), pairs to 1024 (two
+// slots a lane, three neighbours from two shuffles, T unrolled by the
+// ring's depth; 4-byte copies: 8-byte pairs, timed at S=41 with another
+// log-add, ran 0.0499 against 0.0385 ms), block while its ring fits (8
+// rows to 5669 slots, 2 to 13672), rows to the 25827 slots the first kernel
+// took.  Its three-way log-add is logaddexp3_flat, libm's bit for bit with
+// log1pf's branch taken out (log1p_unit, log_add.cuh).  Measured (NVIDIA H100 80GB HBM3,
+// 700.00 W; python -m ctc_tpu_torch.probes.lattice_ab --pass forward,
+// median of 5 profiler windows, in turns with the first kernel, max |dev|
+// 0.0): 3.81 us at S=11 (4.23 before, 0.90x) and 0.0416 ms at S=41 (0.0678
+// before, 0.61x; 31% of the bytes bound: one warp a sample, the log-adds'
+// chain binds, 22.3 us without them in lattice_ab --builds).
 //
 // Numerics follow the JAX package: the -1e30 sentinel, alpha(-1) = 0 at
 // s = 0 and the sentinel elsewhere, the skip branch off at t = 0, the
@@ -118,19 +136,20 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "log_add.cuh"
 
 namespace {
 
 constexpr float kNeg = -1.0e30f;
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
 __device__ __forceinline__ float logaddexp3(float stay, float adv,
                                             float skip) {
   return logaddexp(logaddexp(stay, adv), skip);
+}
+
+__device__ __forceinline__ float logaddexp3_flat(float stay, float adv,
+                                                 float skip) {
+  return logaddexp_flat(logaddexp_flat(stay, adv), skip);
 }
 
 // The final-cell injection of one sample: bar times the softmax of alpha's
@@ -162,16 +181,34 @@ struct FinalInject {
   }
 };
 
-// alpha[t, b, s] = em[t, b, s] + logaddexp3(alpha[t-1, b, s],
-//     alpha[t-1, b, s-1], skip_ok[b, s] && t > 0 ? alpha[t-1, b, s-2] : NEG)
-// with alpha(-1) = 0 at s = 0 and NEG elsewhere.
-__global__ void blank_forward_kernel(const float* __restrict__ em,
-                                     const unsigned char* __restrict__ skip,
-                                     float* __restrict__ alpha, int T, int B,
-                                     int S) {
+// The whole-lattice forward:
+//   alpha[t, b, s] = em[t, b, s] + logaddexp3(alpha[t-1, b, s],
+//       alpha[t-1, b, s-1], skip_ok[b, s] && t > 0 ? alpha[t-1, b, s-2] : NEG)
+// with alpha(-1) = 0 at s = 0 and NEG elsewhere, and
+//   nll[b] = -logaddexp(alpha[t_f, b, 2 tgt], alpha[t_f, b, 2 tgt - 1])
+// (the first cell alone when tgt[b] = 0; indices clamped into the row),
+// t_f = inlen[b] - 1, and 0 where inlen[b] lies outside [1, T] (the
+// wrapper's gather_nll).
+//
+// The rows layout (the first design, for rows wider than the block layout
+// takes): one block a sample, the carried row in a shared double buffer,
+// em[t] read from device memory inside the step, one __syncthreads a step;
+// after the barrier of step inlen - 1, thread 0 reads the two final cells
+// off the carried row (no other shared memory: the widest row fills the
+// 227 KB).
+__device__ __forceinline__ void blank_forward_rows(
+    const float* __restrict__ em, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    float* __restrict__ alpha, float* __restrict__ nll, int T, int B,
+    int S) {
   extern __shared__ float rows[];  // [2][S] floats, then [S] skip bytes
   unsigned char* skip_sh = reinterpret_cast<unsigned char*>(rows + 2 * S);
   const int b = blockIdx.x;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int s_a = min(max(2 * tgt_b, 0), S - 1);
+  const int s_b = min(max(2 * tgt_b - 1, 0), S - 1);
   const size_t row_stride = static_cast<size_t>(B) * S;
   const float* em_b = em + static_cast<size_t>(b) * S;
   float* alpha_b = alpha + static_cast<size_t>(b) * S;
@@ -192,12 +229,18 @@ __global__ void blank_forward_kernel(const float* __restrict__ em,
       const float stay = cur[s];
       const float adv = (s >= 1) ? cur[s - 1] : kNeg;
       const float skp = (s >= 2 && skip_sh[s] && t > 0) ? cur[s - 2] : kNeg;
-      const float a = logaddexp3(stay, adv, skp) + e;
+      const float a = logaddexp3_flat(stay, adv, skp) + e;
       alpha_t[s] = a;
       nxt[s] = a;
     }
     __syncthreads();
+    // alpha[t] stays in nxt until step t + 2 writes it, after the barrier
+    // of step t + 1, which thread 0 reaches only after this read
+    if (t == t_fin && threadIdx.x == 0) {
+      nll[b] = tgt_b > 0 ? -logaddexp(nxt[s_a], nxt[s_b]) : -nxt[s_a];
+    }
   }
+  if (t_fin < 0 && threadIdx.x == 0) nll[b] = 0.0f;
 }
 
 // Shared memory of the shard forward, in floats per slot s: the carried
@@ -240,7 +283,16 @@ __host__ __device__ constexpr int warps_threads(int S) {
 // (kDepth slots a thread); the init rows and the skip mask come into
 // registers with the first group.  Only a slot's owner stores it; the two
 // final cells go through shared memory to thread 0.
-template <int kDepth, int kHalo>
+//
+// kWhole runs the whole lattice instead (the forward's warp layout, rows of
+// up to 32 slots, kHalo 0): a sample a warp, blockDim.x / 32 samples a
+// block; the carry starts at 0 at s = 0 and the sentinel elsewhere, made in
+// registers, the advance source of t = 0 is that carry shifted and its skip
+// source the sentinel, no boundary row is written, and final_out is nll: at
+// the final step the lane of slot 2 tgt takes the other final cell by
+// __shfl_sync and writes nll[b], lane 0 the 0 of a sample whose inlen lies
+// outside [1, T].
+template <int kDepth, int kHalo, bool kWhole = false>
 __device__ __forceinline__ void blank_shard_forward_warps(
     const float* __restrict__ em, const unsigned char* __restrict__ skip,
     const int* __restrict__ inlen, const int* __restrict__ tgt,
@@ -249,20 +301,25 @@ __device__ __forceinline__ void blank_shard_forward_warps(
     float* __restrict__ boundary, int T, int B, int S, int em_stride) {
   static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
                 "the ring's depth is a power of two, at least 2");
+  static_assert(!kWhole || kHalo == 0, "the whole lattice: one-warp rows");
   extern __shared__ float smem[];
   __shared__ float fin[2];  // alpha at the two final cells
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
-  const int s = (tid >> 5) * (32 - kHalo) - kHalo + lane;  // this lane's slot
+  const int b = kWhole ? blockIdx.x * (nt >> 5) + (tid >> 5) : blockIdx.x;
+  if (kWhole && b >= B) return;  // warps past the batch
+  // this lane's slot
+  const int s = kWhole ? lane : (tid >> 5) * (32 - kHalo) - kHalo + lane;
   const bool real = s >= 0 && s < S;
   const bool owner = real && lane >= kHalo;
-  const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int inlen_b = inlen[b];
   const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
-  const bool fin_a = owner && s == min(max(2 * tgt_b, 0), S - 1);
-  const bool fin_b = owner && s == min(max(2 * tgt_b - 1, 0), S - 1);
+  const int s_fa = min(max(2 * tgt_b, 0), S - 1);
+  const int s_fb = min(max(2 * tgt_b - 1, 0), S - 1);
+  const bool fin_a = owner && s == s_fa;
+  const bool fin_b = owner && s == s_fb;
   const size_t b_off = static_cast<size_t>(b) * S;
   const size_t row_stride = static_cast<size_t>(B) * S;
 
@@ -283,12 +340,17 @@ __device__ __forceinline__ void blank_shard_forward_warps(
 
   // the carried slot, its skip permission, and step 0's advance and skip
   // sources init0[b, s-1] and skip0[b, s-2]
-  float a = real ? init0[b_off + s] : kNeg;
+  float a = kWhole ? ((s == 0) ? 0.0f : kNeg)
+                   : (real ? init0[b_off + s] : kNeg);
   // (four independent loads: skip0's is not made to wait for the mask's)
   const bool skip_s = real && s >= 2 && skip[b_off + s];
-  const float adv_first = (real && s >= 1) ? init0[b_off + s - 1] : kNeg;
-  const float skip0_s = (real && s >= 2) ? skip0[b_off + s - 2] : kNeg;
+  const float adv_first =
+      kWhole ? ((s == 1) ? 0.0f : kNeg)
+             : ((real && s >= 1) ? init0[b_off + s - 1] : kNeg);
+  const float skip0_s =
+      (!kWhole && real && s >= 2) ? skip0[b_off + s - 2] : kNeg;
   const float skip_first = skip_s ? skip0_s : kNeg;
+  if (kWhole && t_fin < 0 && s == 0) final_out[b] = 0.0f;
   float* out = alpha + b_off + s;
   auto step = [&](int t, auto first, auto last) {
     float adv, skp;
@@ -303,14 +365,23 @@ __device__ __forceinline__ void blank_shard_forward_warps(
     }
     const float e = cp_async::load(ring_s + (t & (kDepth - 1)) * slot);
     if (real) {
-      a = logaddexp3(a, adv, skp) + e;
+      a = (kWhole ? logaddexp3_flat(a, adv, skp) : logaddexp3(a, adv, skp)) +
+          e;
       if (owner) {
         *out = a;
-        if (t == t_fin) {
+        if (!kWhole && t == t_fin) {
           if (fin_a) fin[0] = a;
           if (fin_b) fin[1] = a;
         }
-        if constexpr (decltype(last)::value) boundary[b_off + s] = a;
+        if constexpr (!kWhole && decltype(last)::value) {
+          boundary[b_off + s] = a;
+        }
+      }
+    }
+    if constexpr (kWhole) {
+      if (t == t_fin) {  // the same step in every lane of the sample's warp
+        const float cell_b = __shfl_sync(kFullMask, a, s_fb);
+        if (fin_a) final_out[b] = -(tgt_b > 0 ? logaddexp(a, cell_b) : a);
       }
     }
     out += row_stride;
@@ -352,6 +423,7 @@ __device__ __forceinline__ void blank_shard_forward_warps(
     cp_async::wait<kDepth - 1>();
     step(T - 1, Flag<false>{}, Flag<true>{});
   }
+  if constexpr (kWhole) return;  // nll is written
   __syncthreads();  // publishes fin
   if (tid == 0) {
     final_out[b] = (t_fin < 0)   ? 0.0f
@@ -381,8 +453,11 @@ __device__ __forceinline__ void blank_shard_forward_warps(
 // thread.  The last step (peeled) writes the boundary row from registers.
 // The two final cells lie in different threads' hands: each owner writes
 // its cell to shared memory at its step, the step's barrier publishes
-// both, and thread 0 log-adds them into final[b].
-template <int kDepth>
+// both, and thread 0 log-adds them into final[b].  kWhole runs the whole
+// lattice (the forward's block layout): the init rows are written by each
+// thread at its slots, not copied, no boundary row is written, and
+// final_out is nll.
+template <int kDepth, bool kWhole = false>
 __device__ __forceinline__ void blank_shard_forward_block(
     const float* __restrict__ em, const unsigned char* __restrict__ skip,
     const int* __restrict__ inlen, const int* __restrict__ tgt,
@@ -440,23 +515,31 @@ __device__ __forceinline__ void blank_shard_forward_block(
         adv = (s >= 1) ? cur[s - 1] : kNeg;
         skp = skip_s ? cur[s - 2] : kNeg;
       }
-      const float a = logaddexp3(stay, adv, skp) + e;
+      const float a = (kWhole ? logaddexp3_flat(stay, adv, skp)
+                              : logaddexp3(stay, adv, skp)) +
+                      e;
       alpha_t[s] = a;
       nxt[s] = a;
       if (t == t_fin) {
         if (s == s_a) fin[0] = a;
         if (s == s_b) fin[1] = a;
       }
-      if constexpr (decltype(last)::value) boundary[b_off + s] = a;
+      if constexpr (!kWhole && decltype(last)::value) boundary[b_off + s] = a;
     }
     alpha_t += row_stride;
   };
 
   // group 0: step 0's em and the init rows; then steps 1 .. kDepth-2
   for (int s = tid; s < S; s += nt) {
-    cp_async::copy4(rows + s, init0 + b_off + s);
-    if (s >= 1) cp_async::copy4(rows + S + s, init0 + b_off + s - 1);
-    if (s >= 2) cp_async::copy4(skip_row0 + s, skip0 + b_off + s - 2);
+    if constexpr (kWhole) {
+      rows[s] = (s == 0) ? 0.0f : kNeg;
+      rows[S + s] = (s == 1) ? 0.0f : kNeg;
+      skip_row0[s] = kNeg;
+    } else {
+      cp_async::copy4(rows + s, init0 + b_off + s);
+      if (s >= 1) cp_async::copy4(rows + S + s, init0 + b_off + s - 1);
+      if (s >= 2) cp_async::copy4(skip_row0 + s, skip0 + b_off + s - 2);
+    }
     skip_sh[s] = skip[b_off + s];
   }
   for (int k = 0; k + 1 < kDepth; ++k) stage();
@@ -482,9 +565,10 @@ __device__ __forceinline__ void blank_shard_forward_block(
     __syncthreads();  // publishes fin
   }
   if (tid == 0) {
-    final_out[b] = (t_fin < 0)   ? 0.0f
-                   : tgt_b > 0 ? logaddexp(fin[0], fin[1])
-                               : fin[0];
+    const float v = (t_fin < 0)   ? 0.0f
+                    : tgt_b > 0 ? logaddexp(fin[0], fin[1])
+                                : fin[0];
+    final_out[b] = kWhole ? -v : v;
   }
 }
 
@@ -511,6 +595,175 @@ __global__ void __launch_bounds__(1024)
     blank_shard_forward_block<kDepth>(em, skip, inlen, tgt, init0, skip0,
                                       alpha, final_out, boundary, T, B, S,
                                       em_stride);
+  }
+}
+
+// The pairs layout of the whole-lattice forward, rows of 33 to
+// kForwardPairsWidth slots (that of noblank_lattice.cu, with 4-byte copies
+// and stores: 8-byte pairs, which took S=41 from 0.0385 to 0.0499 ms on
+// the card, are not used here): one block a sample, two slots a lane (s0 =
+// 2i and s0 + 1 of lane i, the row in whole warps), both carried slots and
+// their skip permissions in registers.  Slot s0 + 1's advance source is the
+// lane's own slot s0 and its skip source the lane before's slot s0 - 1;
+// slot s0's advance and skip sources are the lane before's slots s0 - 1 and
+// s0 - 2: two __shfl_up_sync serve both, and lane 0 of a later warp takes
+// them from the warp before's lane 31 through two shared exchange slots
+// (two rows, toggled a step) after one __syncthreads a step (none in a
+// one-warp row).  em comes through the per-thread cp.async ring, two slots
+// a thread; T runs in unrolled chunks of kDepth steps (the ring slots
+// constants).  After a last barrier, thread 0 reads the two final cells
+// back from alpha and writes nll[b].
+template <int kDepth>
+__device__ __forceinline__ void blank_forward_pairs(
+    const float* __restrict__ em, const unsigned char* __restrict__ skip,
+    const int* __restrict__ inlen, const int* __restrict__ tgt,
+    float* __restrict__ alpha, float* __restrict__ nll, int T, int B,
+    int S) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  const int i = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int n_warps = nt >> 5;
+  const int b = blockIdx.x;
+  const int s0 = 2 * i;  // this lane's slots s0 and s0 + 1
+  const bool real0 = s0 < S;
+  const bool real1 = s0 + 1 < S;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int s_a = min(max(2 * tgt_b, 0), S - 1);
+  const int s_b = min(max(2 * tgt_b - 1, 0), S - 1);
+  const size_t b_off = static_cast<size_t>(b) * S;
+  const size_t row_stride = static_cast<size_t>(B) * S;
+
+  // step r's two em slots of this thread (r < T; an empty group past T) ->
+  // ring slot j (its two columns of the [kDepth][2][nt] ring, slot bytes
+  // apart)
+  const unsigned ring_s = cp_async::shared_address(smem + i);
+  const unsigned slot = 4 * nt;
+  const float* src = em + b_off + s0;
+  auto stage = [&](int r, int j) {
+    if (r < T) {
+      const unsigned dst = ring_s + j * 2 * slot;
+      if (real0) cp_async::copy4(dst, src);
+      if (real1) cp_async::copy4(dst + slot, src + 1);
+      src += row_stride;
+    }
+    cp_async::commit();
+  };
+  // groups 0 .. kDepth-1: steps 0 .. kDepth-1
+  for (int k = 0; k < kDepth; ++k) stage(k, k);
+
+  // the skip permissions, read while the first groups are in flight
+  const bool skip0 = real0 && s0 >= 2 && skip[b_off + s0];
+  const bool skip1 = real1 && s0 + 1 >= 2 && skip[b_off + s0 + 1];
+  const bool wide = n_warps > 1;
+  const bool takes_prev = lane == 0 && warp > 0;
+  // the [2][n_warps][2] exchange rows after the ring: this warp's two
+  // slots and the warp before's, in the row at offset x_row
+  float* x_mine = smem + kDepth * 2 * nt + 2 * warp;
+  const float* x_prev = x_mine - 2;
+  int x_row = 0;
+
+  float a0 = (s0 == 0) ? 0.0f : kNeg;  // alpha(-1) at s0, s0 + 1
+  float a1 = kNeg;
+  float* out = alpha + b_off + s0;
+  // step t, whose em is in ring slot k = t % kDepth
+  auto step = [&](int t, int k) {
+    // step t + kDepth-1, into the slot step t-1 read
+    if (t > 0) stage(t + kDepth - 1, (k + kDepth - 1) & (kDepth - 1));
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    // the lane before's slots s0 - 1 and s0 - 2 (at t = 0 the carry there is
+    // the sentinel, as a lane 0's own slots are)
+    float left1 = __shfl_up_sync(kFullMask, a1, 1);
+    float left0 = __shfl_up_sync(kFullMask, a0, 1);
+    if (wide && t > 0) {
+      if (lane == 31) {
+        x_mine[x_row] = a0;
+        x_mine[x_row + 1] = a1;
+      }
+      __syncthreads();
+      if (takes_prev) {
+        left0 = x_prev[x_row];
+        left1 = x_prev[x_row + 1];
+      }
+      x_row = 2 * n_warps - x_row;
+    }
+    const bool open = t > 0;  // no skip at t = 0
+    const float adv0 = (s0 >= 1) ? left1 : kNeg;
+    const float skp0 = (open && skip0) ? left0 : kNeg;
+    const float skp1 = (open && skip1) ? left1 : kNeg;
+    const unsigned e_s = ring_s + k * 2 * slot;
+    const float e0 = cp_async::load(e_s);
+    const float e1 = cp_async::load(e_s + slot);
+    // both slots branch-free (a lane past the row computes on whatever its
+    // ring slots hold and stores nothing), so the two log-adds overlap
+    const float n0 = logaddexp3_flat(a0, adv0, skp0) + e0;
+    a1 = logaddexp3_flat(a1, a0, skp1) + e1;
+    a0 = n0;
+    if (real0) out[0] = a0;
+    if (real1) out[1] = a1;
+    out += row_stride;
+  };
+  // T in chunks of kDepth steps, unrolled, so that the ring slots are
+  // constants; then the steps past the last whole chunk
+  int t = 0;
+  for (; t + kDepth <= T; t += kDepth) {
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) step(t + k, k);
+  }
+  for (int k = 0; t < T; ++t, ++k) step(t, k);
+  __syncthreads();  // publishes the final cells, stored by their threads
+  if (i == 0) {
+    float v = 0.0f;
+    if (t_fin >= 0) {
+      const float* fin = alpha + t_fin * row_stride + b_off;
+      v = tgt_b > 0 ? -logaddexp(fin[s_a], fin[s_b]) : -fin[s_a];
+    }
+    nll[b] = v;
+  }
+}
+
+// The whole-lattice forward's layouts (kLayout), picked by the wrapper's
+// plan (ops/lattice_cuda.py::forward_plan, FORWARD_LAYOUTS):
+constexpr int kForwardRows = 0;   // blank_forward_rows
+constexpr int kForwardWarp = 1;   // blank_shard_forward_warps<kDepth, 0, true>
+constexpr int kForwardPairs = 2;  // blank_forward_pairs<kDepth>
+constexpr int kForwardBlock = 3;  // blank_shard_forward_block<kDepth, true>
+// the widest row of the pairs layout (two slots a lane, 16 warps) and its
+// exchange slots a warp
+constexpr int kForwardPairsWidth = 1024;
+constexpr int kForwardExchange = 2;
+
+// The most threads a block of each layout may have (its launch bounds):
+// the warp layout 8 samples a block, the pairs layout 16 warps.
+__host__ __device__ constexpr int forward_max_threads(int layout) {
+  return layout == kForwardWarp ? 256 : layout == kForwardPairs ? 512 : 1024;
+}
+
+template <int kLayout, int kDepth>
+__global__ void __launch_bounds__(forward_max_threads(kLayout))
+    blank_forward_kernel(const float* __restrict__ em,
+                         const unsigned char* __restrict__ skip,
+                         const int* __restrict__ inlen,
+                         const int* __restrict__ tgt,
+                         float* __restrict__ alpha, float* __restrict__ nll,
+                         int T, int B, int S) {
+  if constexpr (kLayout == kForwardWarp) {
+    blank_shard_forward_warps<kDepth, 0, true>(em, skip, inlen, tgt, nullptr,
+                                               nullptr, alpha, nll, nullptr,
+                                               T, B, S, B * S);
+  } else if constexpr (kLayout == kForwardPairs) {
+    blank_forward_pairs<kDepth>(em, skip, inlen, tgt, alpha, nll, T, B, S);
+  } else if constexpr (kLayout == kForwardBlock) {
+    blank_shard_forward_block<kDepth, true>(em, skip, inlen, tgt, nullptr,
+                                            nullptr, alpha, nll, nullptr, T,
+                                            B, S, B * S);
+  } else {
+    blank_forward_rows(em, skip, inlen, tgt, alpha, nll, T, B, S);
   }
 }
 
@@ -1034,11 +1287,6 @@ __global__ void __launch_bounds__(512)
                                        B, S);
 }
 
-int block_threads(int S) {
-  int threads = ((S + 31) / 32) * 32;
-  return threads > 1024 ? 1024 : threads;
-}
-
 size_t shared_bytes(int S) {
   return 2 * static_cast<size_t>(S) * sizeof(float) + static_cast<size_t>(S);
 }
@@ -1052,17 +1300,97 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// Shared bytes of a whole-lattice forward block in layout `layout`: the
+// warp layout's em ring, depth slots a thread; the pairs layout's ring of
+// two slots a thread and its two exchange rows; the block layout's
+// shard_forward_floats_per_cell floats and the rows layout's two rows a
+// slot, each with the slot's skip byte.
+size_t forward_bytes(int layout, int S, int depth, int threads) {
+  const size_t n = static_cast<size_t>(threads);
+  const size_t ring = static_cast<size_t>(depth) * n;
+  switch (layout) {
+    case kForwardWarp:
+      return sizeof(float) * ring;
+    case kForwardPairs:
+      return sizeof(float) * 2 * (ring + (n / 32) * kForwardExchange);
+    case kForwardBlock:
+      return static_cast<size_t>(S) *
+             (sizeof(float) * shard_forward_floats_per_cell(depth) + 1);
+    default:
+      return shared_bytes(S);
+  }
+}
+
+// Whether a block of `threads` in `layout` fits rows of S slots: the warp
+// layout takes rows of up to one warp (threads / 32 samples a block), the
+// pairs layout rows of up to kForwardPairsWidth slots, two a lane, in
+// whole warps; the block and rows layouts stride over any row.
+bool forward_threads_fit(int layout, int S, int threads) {
+  switch (layout) {
+    case kForwardWarp:
+      return S <= 32;
+    case kForwardPairs:
+      return S <= kForwardPairsWidth && threads == 32 * ((S + 63) / 64);
+    default:
+      return true;
+  }
+}
+
+template <int kLayout, int kDepth>
+cudaError_t launch_forward_layout(const float* em, const unsigned char* skip,
+                                  const int* inlen, const int* tgt,
+                                  float* alpha, float* nll, int T, int B,
+                                  int S, int threads, size_t smem,
+                                  cudaStream_t stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(blank_forward_kernel<kLayout, kDepth>);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // the warp layout: a sample a warp
+  const int per_block = kLayout == kForwardWarp ? threads / 32 : 1;
+  const int grid = (B + per_block - 1) / per_block;
+  blank_forward_kernel<kLayout, kDepth><<<grid, threads, smem, stream>>>(
+      em, skip, inlen, tgt, alpha, nll, T, B, S);
+  return cudaGetLastError();
+}
+
+// The plan (layout, depth, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::forward_plan).  A layout or ring depth the kernel
+// is not built for, a block past the layout's launch bounds or that does
+// not fit the row (forward_threads_fit), or shared bytes that do not match
+// the layout are refused.
 cudaError_t launch_forward(const float* em, const unsigned char* skip,
-                           float* alpha, int T, int B, int S,
+                           const int* inlen, const int* tgt, float* alpha,
+                           float* nll, int T, int B, int S, int layout,
+                           int depth, int threads, int smem,
                            cudaStream_t stream) {
   if (T <= 0 || B <= 0 || S <= 0) return cudaSuccess;
-  const size_t smem = shared_bytes(S);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(blank_forward_kernel), smem);
-  if (err != cudaSuccess) return err;
-  blank_forward_kernel<<<B, block_threads(S), smem, stream>>>(em, skip, alpha,
-                                                              T, B, S);
-  return cudaGetLastError();
+  const size_t bytes = static_cast<size_t>(smem);
+  if (layout < kForwardRows || layout > kForwardBlock || threads < 32 ||
+      threads % 32 != 0 || threads > forward_max_threads(layout) ||
+      !forward_threads_fit(layout, S, threads) ||
+      bytes != forward_bytes(layout, S, depth, threads)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (layout * 16 + depth) {
+    case kForwardWarp * 16 + 8:
+      return launch_forward_layout<kForwardWarp, 8>(
+          em, skip, inlen, tgt, alpha, nll, T, B, S, threads, bytes, stream);
+    case kForwardPairs * 16 + 8:
+      return launch_forward_layout<kForwardPairs, 8>(
+          em, skip, inlen, tgt, alpha, nll, T, B, S, threads, bytes, stream);
+    case kForwardBlock * 16 + 8:
+      return launch_forward_layout<kForwardBlock, 8>(
+          em, skip, inlen, tgt, alpha, nll, T, B, S, threads, bytes, stream);
+    case kForwardBlock * 16 + 2:
+      return launch_forward_layout<kForwardBlock, 2>(
+          em, skip, inlen, tgt, alpha, nll, T, B, S, threads, bytes, stream);
+    case kForwardRows * 16 + 0:
+      return launch_forward_layout<kForwardRows, 0>(
+          em, skip, inlen, tgt, alpha, nll, T, B, S, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kDepth, int kHalo>
@@ -1269,10 +1597,15 @@ cudaError_t launch_shard_backward(
 
 extern "C" {
 
+// Writes alpha [T, B, S] and nll [B]; layout, depth, threads and smem are
+// the wrapper's plan.
 cudaError_t blank_lattice_forward(const float* em, const unsigned char* skip,
-                                  float* alpha, int T, int B, int S,
-                                  cudaStream_t stream) {
-  return launch_forward(em, skip, alpha, T, B, S, stream);
+                                  const int* inlen, const int* tgt,
+                                  float* alpha, float* nll, int T, int B,
+                                  int S, int layout, int depth, int threads,
+                                  int smem, cudaStream_t stream) {
+  return launch_forward(em, skip, inlen, tgt, alpha, nll, T, B, S, layout,
+                        depth, threads, smem, stream);
 }
 
 // layout, chunk, threads and smem are the wrapper's plan.

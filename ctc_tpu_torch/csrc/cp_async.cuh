@@ -40,6 +40,25 @@ __device__ __forceinline__ void copy4(unsigned dst_s, const float* src) {
                : "memory");
 }
 
+// One 8-byte asynchronous copy to a shared-window address (both addresses
+// 8-byte aligned).
+__device__ __forceinline__ void copy8(unsigned dst_s, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst_s),
+               "l"(src)
+               : "memory");
+}
+
+// An 8-byte load of two floats from a shared-window address (8-byte
+// aligned), kept after the waits before it.
+__device__ __forceinline__ float2 load2(unsigned src_s) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(src_s)
+               : "memory");
+  return v;
+}
+
 // A 4-byte load from a shared-window address, kept after the waits before
 // it.
 __device__ __forceinline__ float load(unsigned src_s) {

@@ -15,19 +15,49 @@
 // is sequential in T, so the real limit at small B is the latency of T
 // dependent steps inside one block.
 //
-// Design of the forward (and of the backward's rows layout): one thread
-// block per sample b, threads across the label positions l (strided when L
-// exceeds the block).  The block walks all of T itself: the carried row
-// lives in a shared-memory double buffer, so each step costs one
-// __syncthreads and the l-1 / l+1 neighbour read never races the write of
-// the next row.  Row reads and writes of [t, b, :] are
-// contiguous in l, so every warp's access is coalesced.  Many samples (B
-// blocks, ~10 resident per SM at L=157) are in flight at once, which is
-// what hides each step's load latency.  Numerics follow the JAX package:
-// the -1e13 sentinel, a sentinel advance at t=0, logaddexp as max +
-// log1p(exp(-|a-b|)), the outside mask applied before the emission add, and
-// sigmoid branch weights in the backward (degenerate lattices need the
-// exact 1/2, 1/2 split).
+// The first kernels' design, kept as the rows layout of both whole-lattice
+// kernels for the widest rows: one thread block per sample b, threads
+// across the label positions l (strided when L exceeds the block), the
+// carried row in a shared-memory double buffer, one __syncthreads a step.
+// Numerics follow the JAX package: the -1e13 sentinel, a sentinel advance
+// at t=0, logaddexp as max + log1p(exp(-|a-b|)), the outside mask applied
+// before the emission add, and sigmoid branch weights in the backward
+// (degenerate lattices need the exact 1/2, 1/2 split).
+//
+// The whole-lattice forward (noblank_forward_kernel<kLayout, kDepth>, entry
+// noblank_lattice_forward) first ran that loop with em[t] read from device
+// memory inside each step: 3.7 us at T=10, B=256, L=10 (one warp, 22 of 32
+// lanes idle) and 0.106 ms at T=128, B=1024, L=157, and the op gathered the
+// NLL after it with about a dozen small torch kernels.  It now writes
+// nll[b] = -alpha[inlen-1, b, clamp(tgt-1)] (0 where inlen lies outside
+// [1, T]) itself, stages em on a per-thread cp.async ring 8 rows ahead, and
+// takes the layout the plan (ops/lattice_cuda.py::forward_plan) picks by
+// width:
+//   - warp, rows of up to 32 cells: the shard forward's warps body under
+//     kWhole, a sample a warp and four a block, a lane a cell, the advance
+//     source by __shfl_up_sync, no barrier.
+//   - pairs, 33 to 1024 cells: one block a sample, two cells a lane, one
+//     exchange slot and barrier a step across warps; where B L is even the
+//     pairs are 8-byte aligned (one 8-byte copy, load and store a step);
+//     T unrolled in chunks of the ring's depth.
+//   - block, wider rows while its ring fits (8 rows up to 5810 cells, 2 up
+//     to 14527): the shard forward's block body under kWhole (em on a ring
+//     of shared rows; it ran 0.043 and 0.112 ms against the row loop's
+//     0.095 and 0.193 at [64, 132, 1500] and [32, 132, 9000]).
+//   - rows, wider rows to the 29056 cells the first kernel took.
+// Its log-add (logaddexp_flat, log_add.cuh) is libm's, bit for bit, with
+// log1pf's one branch taken out (log1p_unit), which had kept a lane's two log-adds from
+// overlapping.  (A log-add
+// in base 2 ran 0.0673 ms at L=157, but rounds otherwise: over T=4096 the
+// 4-shard chain's gradient left the unsharded kernel's tolerance.)
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; python -m
+// ctc_tpu_torch.probes.lattice_ab --pass forward, median of 5 profiler
+// windows, in turns with the first kernel, max |dev| 0.0): 2.86 us at
+// T=10, B=256, L=10 (3.66 before, 0.78x) and 0.0712 ms at T=128, B=1024,
+// L=157 (0.1060 before, 0.67x; 69% of the bytes bound).  At L=157 a step
+// pays for its em copy, its store and its log-add alike: the one-place
+// builds of lattice_ab --builds ran 58.5 us without the copy, 61.0
+// without the store and 66.6 without the log-add (71.4 with all).
 //
 // The whole-lattice backward (noblank_backward_kernel<kLayout, kChunk>,
 // entry noblank_lattice_backward) first had that design: each of T steps
@@ -161,35 +191,45 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "cp_async.cuh"
+#include "log_add.cuh"
 
 namespace {
 
 constexpr float kNegSentinel = -1.0e13f;
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// alpha[t, b, l] = em[t, b, l]
-//     + (l >= tgt[b] ? -1e13 : logaddexp(alpha[t-1, b, l], alpha[t-1, b, l-1]))
-// with alpha(-1) = 0 at l = 0 and the sentinel elsewhere; no advance at t=0.
-__global__ void noblank_forward_kernel(const float* __restrict__ em,
-                                       const int* __restrict__ tgt,
-                                       float* __restrict__ alpha, int T, int B,
-                                       int L) {
+// The whole-lattice forward:
+//   alpha[t, b, l] = em[t, b, l] + (l >= tgt[b] ? -1e13
+//       : logaddexp(alpha[t-1, b, l], alpha[t-1, b, l-1]))
+// with alpha(-1) = 0 at l = 0 and the sentinel elsewhere, no advance at
+// t = 0, and nll[b] = -alpha[inlen[b]-1, b, clamp(tgt[b]-1, 0, L-1)], 0
+// where inlen[b] lies outside [1, T] (the wrapper's gather_nll).
+//
+// The rows layout (the first design, for rows wider than the block layout
+// takes): one block a sample, the carried row in a shared double buffer,
+// em[t] read from device memory inside the step, one __syncthreads a step;
+// the final cell's thread writes nll[b] at its step.
+__device__ __forceinline__ void noblank_forward_rows(
+    const float* __restrict__ em, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, float* __restrict__ alpha,
+    float* __restrict__ nll, int T, int B, int L) {
   extern __shared__ float rows[];  // [2][L]
   const int b = blockIdx.x;
   const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int l_fin = min(max(tgt_b - 1, 0), L - 1);
   const size_t row_stride = static_cast<size_t>(B) * L;
   const float* em_b = em + static_cast<size_t>(b) * L;
   float* alpha_b = alpha + static_cast<size_t>(b) * L;
 
+  if (t_fin < 0 && threadIdx.x == 0) nll[b] = 0.0f;
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     rows[l] = (l == 0) ? 0.0f : kNegSentinel;
   }
@@ -203,9 +243,10 @@ __global__ void noblank_forward_kernel(const float* __restrict__ em,
       const float e = em_t[l];
       const float stay = cur[l];
       const float adv = (l > 0 && t > 0) ? cur[l - 1] : kNegSentinel;
-      float lse = logaddexp(stay, adv);
+      float lse = logaddexp_flat(stay, adv);
       if (l >= tgt_b) lse = kNegSentinel;
       const float a = lse + e;
+      if (t == t_fin && l == l_fin) nll[b] = -a;
       alpha_t[l] = a;
       nxt[l] = a;
     }
@@ -251,7 +292,14 @@ __host__ __device__ constexpr int warps_threads(int L) {
 // the per-thread cp.async ring (kDepth slots a thread); the init rows come
 // into registers with the first group.  Only a cell's owner stores it; the
 // final cell goes through shared memory to thread 0.
-template <int kDepth, int kHalo>
+//
+// kWhole runs the whole lattice instead (the forward's warp layout, rows of
+// up to 32 cells, kHalo 0): a sample a warp, blockDim.x / 32 samples a
+// block; the carry starts at 0 at l = 0 and the sentinel elsewhere, made in
+// registers, the advance source of t = 0 is the sentinel, no boundary row is
+// written, and final_out is nll: the final cell's lane writes -alpha at its
+// step, lane 0 the 0 of a sample whose inlen lies outside [1, T].
+template <int kDepth, int kHalo, bool kWhole = false>
 __device__ __forceinline__ void noblank_shard_forward_warps(
     const float* __restrict__ em, const int* __restrict__ inlen,
     const int* __restrict__ tgt, const float* __restrict__ stay0,
@@ -260,15 +308,18 @@ __device__ __forceinline__ void noblank_shard_forward_warps(
     int L, int em_stride) {
   static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
                 "the ring's depth is a power of two, at least 2");
+  static_assert(!kWhole || kHalo == 0, "the whole lattice: one-warp rows");
   extern __shared__ float smem[];
   __shared__ float fin;  // alpha at the final cell
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
-  const int l = (tid >> 5) * (32 - kHalo) - kHalo + lane;  // this lane's cell
+  const int b = kWhole ? blockIdx.x * (nt >> 5) + (tid >> 5) : blockIdx.x;
+  if (kWhole && b >= B) return;  // warps past the batch
+  // this lane's cell
+  const int l = kWhole ? lane : (tid >> 5) * (32 - kHalo) - kHalo + lane;
   const bool real = l >= 0 && l < L;
   const bool owner = real && lane >= kHalo;
-  const int b = blockIdx.x;
   const int tgt_b = tgt[b];
   const int inlen_b = inlen[b];
   const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
@@ -293,8 +344,11 @@ __device__ __forceinline__ void noblank_shard_forward_warps(
   };
 
   // the carried cell, and step 0's advance source adv0[b, l-1]
-  float a = real ? stay0[b_off + l] : kNegSentinel;
-  const float adv_first = (real && l > 0) ? adv0[b_off + l - 1] : kNegSentinel;
+  float a = kWhole ? ((l == 0) ? 0.0f : kNegSentinel)
+                   : (real ? stay0[b_off + l] : kNegSentinel);
+  const float adv_first =
+      (!kWhole && real && l > 0) ? adv0[b_off + l - 1] : kNegSentinel;
+  if (kWhole && t_fin < 0 && l == 0) final_out[b] = 0.0f;
   float* out = alpha + b_off + l;
   auto step = [&](int t, auto first, auto last) {
     float adv;
@@ -306,13 +360,21 @@ __device__ __forceinline__ void noblank_shard_forward_warps(
     }
     const float e = cp_async::load(ring_s + (t & (kDepth - 1)) * slot);
     if (real) {
-      float lse = logaddexp(a, adv);
+      float lse = kWhole ? logaddexp_flat(a, adv) : logaddexp(a, adv);
       if (outside) lse = kNegSentinel;
       a = lse + e;
       if (owner) {
         *out = a;
-        if (t == t_fin && fin_cell) fin = a;
-        if constexpr (decltype(last)::value) boundary[b_off + l] = a;
+        if (t == t_fin && fin_cell) {
+          if constexpr (kWhole) {
+            final_out[b] = -a;
+          } else {
+            fin = a;
+          }
+        }
+        if constexpr (!kWhole && decltype(last)::value) {
+          boundary[b_off + l] = a;
+        }
       }
     }
     out += row_stride;
@@ -354,6 +416,7 @@ __device__ __forceinline__ void noblank_shard_forward_warps(
     cp_async::wait<kDepth - 1>();
     step(T - 1, Flag<false>{}, Flag<true>{});
   }
+  if constexpr (kWhole) return;  // nll is written
   __syncthreads();  // publishes fin
   if (tid == 0) final_out[b] = (t_fin >= 0) ? fin : 0.0f;
 }
@@ -376,8 +439,11 @@ __device__ __forceinline__ void noblank_shard_forward_warps(
 // into the carry row and adv0[b, l-1] into the other row at l, so step 0
 // (peeled) reads only this thread's copies; the last step (peeled) writes
 // the boundary row from registers.  The final cell's value goes through
-// shared memory at its step's barrier; thread 0 writes final[b].
-template <int kDepth>
+// shared memory at its step's barrier; thread 0 writes final[b].  kWhole
+// runs the whole lattice (the forward's block layout): the init rows are
+// written by each thread at its cells, not copied, no boundary row is
+// written, and final_out is nll.
+template <int kDepth, bool kWhole = false>
 __device__ __forceinline__ void noblank_shard_forward_block(
     const float* __restrict__ em, const int* __restrict__ inlen,
     const int* __restrict__ tgt, const float* __restrict__ stay0,
@@ -427,21 +493,26 @@ __device__ __forceinline__ void noblank_shard_forward_block(
       } else {
         adv = (l > 0) ? cur[l - 1] : kNegSentinel;
       }
-      float lse = logaddexp(stay, adv);
+      float lse = kWhole ? logaddexp_flat(stay, adv) : logaddexp(stay, adv);
       if (l >= tgt_b) lse = kNegSentinel;
       const float a = lse + e;
       alpha_t[l] = a;
       nxt[l] = a;
       if (t == t_fin && l == l_fin) fin = a;
-      if constexpr (decltype(last)::value) boundary[b_off + l] = a;
+      if constexpr (!kWhole && decltype(last)::value) boundary[b_off + l] = a;
     }
     alpha_t += row_stride;
   };
 
   // group 0: step 0's em and the init rows; then steps 1 .. kDepth-2
   for (int l = tid; l < L; l += nt) {
-    cp_async::copy4(rows + l, stay0 + b_off + l);
-    if (l > 0) cp_async::copy4(rows + L + l, adv0 + b_off + l - 1);
+    if constexpr (kWhole) {
+      rows[l] = (l == 0) ? 0.0f : kNegSentinel;
+      rows[L + l] = kNegSentinel;
+    } else {
+      cp_async::copy4(rows + l, stay0 + b_off + l);
+      if (l > 0) cp_async::copy4(rows + L + l, adv0 + b_off + l - 1);
+    }
   }
   for (int s = 0; s + 1 < kDepth; ++s) stage();
   cp_async::wait<kDepth - 2>();  // group 0 has landed
@@ -464,7 +535,8 @@ __device__ __forceinline__ void noblank_shard_forward_block(
     step(T - 1, Flag<false>{}, Flag<true>{});
     __syncthreads();  // publishes fin
   }
-  if (tid == 0) final_out[b] = (t_fin >= 0) ? fin : 0.0f;
+  if (tid == 0) final_out[b] = kWhole ? ((t_fin >= 0) ? -fin : 0.0f)
+                                      : ((t_fin >= 0) ? fin : 0.0f);
 }
 
 // The shard forward kernel: the warps layout (kHalo halo lanes a warp:
@@ -489,6 +561,186 @@ __global__ void __launch_bounds__(1024)
     noblank_shard_forward_block<kDepth>(em, inlen, tgt, stay0, adv0, alpha,
                                         final_out, boundary, T, B, L,
                                         em_stride);
+  }
+}
+
+// The pairs layout of the whole-lattice forward, rows of 33 to
+// kForwardPairsWidth cells: one block a sample, two cells a lane, the row
+// in whole warps, both carried cells in registers.  Where a step's rows
+// [b, :] span an even number of floats (B L even: every row of a sample
+// then starts at the same parity), the pairs are 8-byte aligned in em and
+// alpha (whose bases are): lane i holds cells l0 = 2i - off and l0 + 1,
+// off = 1 where the sample's row starts at an odd float, and then lane 0's
+// first cell is the cell before the row (the sample before's last: read,
+// never written; its carry is held at the sentinel); a step copies em by
+// one 8-byte cp.async (4 bytes for a pair the row ends in), reads it by one
+// 8-byte shared load and stores alpha by one 8-byte store.  Where B L is
+// odd a row's parity changes with t, so lane i holds cells 2i and 2i + 1
+// and copies and stores them 4 bytes at a time (at every B L that ran 2%
+// slower at T=128, B=1024, L=157: lattice_ab --builds pairs4).
+// Cell l0 + 1's advance source is the lane's own cell l0; cell l0's is the
+// lane before's cell l0 - 1, by __shfl_up_sync, which lane 0 of a later
+// warp takes from the warp before's lane 31 through a shared exchange slot
+// (two rows, toggled a step) after one __syncthreads a step (none in a
+// one-warp row).  em comes through the per-thread cp.async ring, kDepth - 1
+// steps ahead: each thread copies and reads only its own [kDepth] column of
+// pairs, so em needs no barrier.  T runs in unrolled chunks of kDepth
+// steps (the ring slots constants).  The thread that stored the final cell
+// reads it back after the last step and writes nll[b], thread 0 the 0 of a
+// sample whose inlen lies outside [1, T].
+template <int kDepth>
+__device__ __forceinline__ void noblank_forward_pairs(
+    const float* __restrict__ em, const int* __restrict__ inlen,
+    const int* __restrict__ tgt, float* __restrict__ alpha,
+    float* __restrict__ nll, int T, int B, int L) {
+  static_assert(kDepth >= 2 && (kDepth & (kDepth - 1)) == 0,
+                "the ring's depth is a power of two, at least 2");
+  extern __shared__ float smem[];
+  const int i = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int n_warps = nt >> 5;
+  const int b = blockIdx.x;
+  const size_t b_off = static_cast<size_t>(b) * L;
+  const size_t row_stride = static_cast<size_t>(B) * L;
+  const bool paired = (row_stride & 1) == 0;  // 8-byte pairs
+  // this lane's cells l0 and l0 + 1
+  const int l0 = 2 * i - (paired ? static_cast<int>(b_off & 1) : 0);
+  const bool real0 = l0 >= 0 && l0 < L;
+  const bool real1 = l0 + 1 < L;
+  const int tgt_b = tgt[b];
+  const int inlen_b = inlen[b];
+  const int t_fin = (inlen_b >= 1 && inlen_b <= T) ? inlen_b - 1 : -1;
+  const int l_fin = min(max(tgt_b - 1, 0), L - 1);
+  // the cell before the row counts as outside: its carry stays at the
+  // sentinel, the advance source cell 0 lacks
+  const bool outside0 = l0 < 0 || l0 >= tgt_b;
+  const bool outside1 = l0 + 1 >= tgt_b;
+
+  // step r's pair of this thread (r < T; an empty group past T) -> ring
+  // slot j (its column of the [kDepth][nt] ring of pairs, slot bytes apart)
+  const unsigned ring_s = cp_async::shared_address(smem + 2 * i);
+  const unsigned slot = 8 * nt;
+  const float* src = em + b_off + l0;
+  auto stage = [&](int r, int j) {
+    if (r < T) {
+      const unsigned dst = ring_s + j * slot;
+      if (paired && real1) {
+        cp_async::copy8(dst, src);
+      } else {
+        if (real0) cp_async::copy4(dst, src);
+        if (real1) cp_async::copy4(dst + 4, src + 1);
+      }
+      src += row_stride;
+    }
+    cp_async::commit();
+  };
+  // groups 0 .. kDepth-1: steps 0 .. kDepth-1
+  for (int k = 0; k < kDepth; ++k) stage(k, k);
+
+  if (t_fin < 0 && i == 0) nll[b] = 0.0f;
+  const bool wide = n_warps > 1;
+  const bool takes_prev = lane == 0 && warp > 0;
+  // the [2][n_warps] exchange rows after the ring: this warp's slot and the
+  // warp before's, in the row at offset x_row
+  float* x_mine = smem + kDepth * 2 * nt + warp;
+  const float* x_prev = x_mine - 1;
+  int x_row = 0;
+
+  // alpha(-1) at l0 and l0 + 1: 0 at cell 0, the sentinel elsewhere
+  float a0 = (l0 == 0) ? 0.0f : kNegSentinel;
+  float a1 = (l0 + 1 == 0) ? 0.0f : kNegSentinel;
+  float* out = alpha + b_off + l0;
+  // step t, whose em is in ring slot k = t % kDepth
+  auto step = [&](int t, int k) {
+    // step t + kDepth-1, into the slot step t-1 read
+    if (t > 0) stage(t + kDepth - 1, (k + kDepth - 1) & (kDepth - 1));
+    cp_async::wait<kDepth - 1>();  // step t's group has landed
+    const float2 e = cp_async::load2(ring_s + k * slot);
+    // cell l0 + 1 first: its sources are the lane's own (no advance at
+    // t = 0), so it does not wait for the exchange
+    float lse1 = logaddexp_flat(a1, (t > 0) ? a0 : kNegSentinel);
+    if (outside1) lse1 = kNegSentinel;
+    const float n1 = lse1 + e.y;
+    float adv0 = kNegSentinel;
+    if (t > 0) {
+      float left = __shfl_up_sync(kFullMask, a1, 1);  // cell l0 - 1
+      if (wide) {
+        if (lane == 31) x_mine[x_row] = a1;
+        __syncthreads();
+        if (takes_prev) left = x_prev[x_row];
+        x_row = n_warps - x_row;
+      }
+      if (l0 > 0) adv0 = left;
+    }
+    // both cells branch-free (a lane past the row computes on whatever
+    // its ring slots hold and stores nothing), so the two log-adds overlap
+    float lse0 = logaddexp_flat(a0, adv0);
+    if (outside0) lse0 = kNegSentinel;
+    // the cell before the row stays at the sentinel, whatever em holds there
+    a0 = (l0 < 0) ? kNegSentinel : lse0 + e.x;
+    a1 = n1;
+    if (paired && real0 && real1) {
+      *reinterpret_cast<float2*>(out) = make_float2(a0, a1);
+    } else {
+      if (real0) out[0] = a0;
+      if (real1) out[1] = a1;
+    }
+    out += row_stride;
+  };
+  // T in chunks of kDepth steps, unrolled, so that the ring slots are
+  // constants; then the steps past the last whole chunk
+  int t = 0;
+  for (; t + kDepth <= T; t += kDepth) {
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) step(t + k, k);
+  }
+  for (int k = 0; t < T; ++t, ++k) step(t, k);
+  // the final cell, read back by the thread that stored it
+  if (t_fin >= 0 && (l0 == l_fin || l0 + 1 == l_fin)) {
+    nll[b] = -alpha[t_fin * row_stride + b_off + l_fin];
+  }
+}
+
+// The whole-lattice forward's layouts (kLayout), picked by the wrapper's
+// plan (ops/lattice_cuda.py::forward_plan, FORWARD_LAYOUTS):
+constexpr int kForwardRows = 0;   // noblank_forward_rows
+// noblank_shard_forward_warps<kDepth, 0, true>
+constexpr int kForwardWarp = 1;
+constexpr int kForwardPairs = 2;  // noblank_forward_pairs<kDepth>
+constexpr int kForwardBlock = 3;  // noblank_shard_forward_block<kDepth, true>
+// the widest row of the pairs layout (two cells a lane, 16 warps) and its
+// exchange slots a warp
+constexpr int kForwardPairsWidth = 1024;
+constexpr int kForwardExchange = 1;
+
+// The most threads a block of each layout may have (its launch bounds):
+// the warp layout 8 samples a block, the pairs layout 17 warps (the pairs
+// of cells -1 .. 1023).
+__host__ __device__ constexpr int forward_max_threads(int layout) {
+  return layout == kForwardWarp ? 256 : layout == kForwardPairs ? 544 : 1024;
+}
+
+template <int kLayout, int kDepth>
+__global__ void __launch_bounds__(forward_max_threads(kLayout))
+    noblank_forward_kernel(const float* __restrict__ em,
+                           const int* __restrict__ inlen,
+                           const int* __restrict__ tgt,
+                           float* __restrict__ alpha, float* __restrict__ nll,
+                           int T, int B, int L) {
+  if constexpr (kLayout == kForwardWarp) {
+    noblank_shard_forward_warps<kDepth, 0, true>(
+        em, inlen, tgt, nullptr, nullptr, alpha, nll, nullptr, T, B, L,
+        B * L);
+  } else if constexpr (kLayout == kForwardPairs) {
+    noblank_forward_pairs<kDepth>(em, inlen, tgt, alpha, nll, T, B, L);
+  } else if constexpr (kLayout == kForwardBlock) {
+    noblank_shard_forward_block<kDepth, true>(em, inlen, tgt, nullptr,
+                                              nullptr, alpha, nll, nullptr, T,
+                                              B, L, B * L);
+  } else {
+    noblank_forward_rows(em, inlen, tgt, alpha, nll, T, B, L);
   }
 }
 
@@ -942,11 +1194,6 @@ __global__ void __launch_bounds__(512)
                                          B, L);
 }
 
-int block_threads(int L) {
-  int threads = ((L + 31) / 32) * 32;
-  return threads > 1024 ? 1024 : threads;
-}
-
 cudaError_t prepare(const void* kernel, size_t smem) {
   if (smem > 48 * 1024) {
     return cudaFuncSetAttribute(kernel,
@@ -956,17 +1203,102 @@ cudaError_t prepare(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
-cudaError_t launch_forward(const float* em, const int* tgt, float* alpha,
-                           int T, int B, int L, cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(L) * sizeof(float);
-  cudaError_t err =
-      prepare(reinterpret_cast<const void*>(noblank_forward_kernel), smem);
+// Shared bytes of a whole-lattice forward block in layout `layout`: the
+// warp layout's em ring, depth slots a thread; the pairs layout's ring of
+// two cells a thread and its two exchange rows; the block layout's
+// shard_forward_floats_per_cell floats a cell; the rows layout's two rows.
+size_t forward_bytes(int layout, int L, int depth, int threads) {
+  const size_t n = static_cast<size_t>(threads);
+  const size_t ring = static_cast<size_t>(depth) * n;
+  switch (layout) {
+    case kForwardWarp:
+      return sizeof(float) * ring;
+    case kForwardPairs:
+      return sizeof(float) * 2 * (ring + (n / 32) * kForwardExchange);
+    case kForwardBlock:
+      return sizeof(float) * static_cast<size_t>(L) *
+             shard_forward_floats_per_cell(depth);
+    default:
+      return sizeof(float) * 2 * static_cast<size_t>(L);
+  }
+}
+
+// Whether a block of `threads` in `layout` fits rows of L cells: the warp
+// layout takes rows of up to one warp (threads / 32 samples a block), the
+// pairs layout rows of up to kForwardPairsWidth cells, two a lane, in
+// whole warps; the block and rows layouts stride over any row.
+bool forward_threads_fit(int layout, int L, int threads) {
+  switch (layout) {
+    case kForwardWarp:
+      return L <= 32;
+    case kForwardPairs:  // the pairs of cells -1 .. L-1
+      return L <= kForwardPairsWidth && threads == 32 * ((L + 64) / 64);
+    default:
+      return true;
+  }
+}
+
+// The pairs layout reads em and writes alpha in 8-byte pairs: both bases
+// 8-byte aligned (the wrapper copies an em that is not).
+bool pairs_aligned(const float* em, const float* alpha) {
+  return ((reinterpret_cast<uintptr_t>(em) |
+           reinterpret_cast<uintptr_t>(alpha)) & 7) == 0;
+}
+
+template <int kLayout, int kDepth>
+cudaError_t launch_forward_layout(const float* em, const int* inlen,
+                                  const int* tgt, float* alpha, float* nll,
+                                  int T, int B, int L, int threads,
+                                  size_t smem, cudaStream_t stream) {
+  const void* kernel =
+      reinterpret_cast<const void*>(noblank_forward_kernel<kLayout, kDepth>);
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  noblank_forward_kernel<<<B, block_threads(L), smem, stream>>>(em, tgt,
-                                                                alpha, T, B,
-                                                                L);
+  // the warp layout: a sample a warp
+  const int per_block = kLayout == kForwardWarp ? threads / 32 : 1;
+  const int grid = (B + per_block - 1) / per_block;
+  noblank_forward_kernel<kLayout, kDepth><<<grid, threads, smem, stream>>>(
+      em, inlen, tgt, alpha, nll, T, B, L);
   return cudaGetLastError();
+}
+
+// The plan (layout, depth, threads, shared bytes) comes from the wrapper
+// (ops/lattice_cuda.py::forward_plan).  A layout or ring depth the kernel
+// is not built for, a block past the layout's launch bounds or that does
+// not fit the row (forward_threads_fit), or shared bytes that do not match
+// the layout are refused.
+cudaError_t launch_forward(const float* em, const int* inlen, const int* tgt,
+                           float* alpha, float* nll, int T, int B, int L,
+                           int layout, int depth, int threads, int smem,
+                           cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || L <= 0) return cudaSuccess;
+  const size_t bytes = static_cast<size_t>(smem);
+  if (layout < kForwardRows || layout > kForwardBlock || threads < 32 ||
+      threads % 32 != 0 || threads > forward_max_threads(layout) ||
+      !forward_threads_fit(layout, L, threads) ||
+      bytes != forward_bytes(layout, L, depth, threads) ||
+      (layout == kForwardPairs && !pairs_aligned(em, alpha))) {
+    return cudaErrorInvalidValue;
+  }
+  switch (layout * 16 + depth) {
+    case kForwardWarp * 16 + 8:
+      return launch_forward_layout<kForwardWarp, 8>(
+          em, inlen, tgt, alpha, nll, T, B, L, threads, bytes, stream);
+    case kForwardPairs * 16 + 8:
+      return launch_forward_layout<kForwardPairs, 8>(
+          em, inlen, tgt, alpha, nll, T, B, L, threads, bytes, stream);
+    case kForwardBlock * 16 + 8:
+      return launch_forward_layout<kForwardBlock, 8>(
+          em, inlen, tgt, alpha, nll, T, B, L, threads, bytes, stream);
+    case kForwardBlock * 16 + 2:
+      return launch_forward_layout<kForwardBlock, 2>(
+          em, inlen, tgt, alpha, nll, T, B, L, threads, bytes, stream);
+    case kForwardRows * 16 + 0:
+      return launch_forward_layout<kForwardRows, 0>(
+          em, inlen, tgt, alpha, nll, T, B, L, threads, bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int kDepth, int kHalo>
@@ -1171,10 +1503,15 @@ cudaError_t launch_shard_backward(const float* alpha, const int* inlen,
 
 extern "C" {
 
-cudaError_t noblank_lattice_forward(const float* em, const int* tgt,
-                                    float* alpha, int T, int B, int L,
+// Writes alpha [T, B, L] and nll [B]; layout, depth, threads and smem are
+// the wrapper's plan.
+cudaError_t noblank_lattice_forward(const float* em, const int* inlen,
+                                    const int* tgt, float* alpha, float* nll,
+                                    int T, int B, int L, int layout,
+                                    int depth, int threads, int smem,
                                     cudaStream_t stream) {
-  return launch_forward(em, tgt, alpha, T, B, L, stream);
+  return launch_forward(em, inlen, tgt, alpha, nll, T, B, L, layout, depth,
+                        threads, smem, stream);
 }
 
 // layout, chunk, threads and smem are the wrapper's plan.

@@ -13,8 +13,9 @@ blank-expanded sequence ``z = [blank, l1, blank, ..., lL, blank]`` of
 from ``alpha(-1)`` = 0 at ``s = 0`` and the sentinel elsewhere.  The
 per-sample NLL is ``-logaddexp(alpha[T_b-1, 2L_b], alpha[T_b-1, 2L_b-1])``
 (only the ``2L_b`` cell when ``L_b == 0``), 0 where the input length lies
-outside ``[1, T]``; the gradient is the analytic reverse occupancy recursion
-with three-way softmax branch weights.  No validity mask is applied:
+outside ``[1, T]`` (the forward kernel writes it beside alpha; the plain
+path's :func:`gather_nll`); the gradient is the analytic reverse occupancy
+recursion with three-way softmax branch weights.  No validity mask is applied:
 transitions only move to higher ``s``, so cells past ``2L_b`` never feed the
 cells the loss reads, and their gradient is exactly 0.
 
@@ -47,6 +48,9 @@ from ctc_tpu_torch.ops.lattice_cuda import (
     _to_tbl,
     backward_dims,
     backward_plan,
+    forward_dims,
+    forward_outputs,
+    forward_plan,
     launch,
     rows_layout,
     shard_backward_plan,
@@ -234,12 +238,17 @@ def init_row_grads(g0, init0, skip0, skip_ok):
 # ---------------------------------------------------------------------------
 
 
-def blank_alpha_kernel(em, skip_ok):
-    """Launch the forward kernel: alpha ``[T, B, S]`` from em ``[T, B, S]``
-    and the uint8 ``[B, S]`` skip mask."""
-    _require("blank_lattice_forward", em=em, skip_ok=skip_ok)
+def blank_alpha_kernel(em, skip_ok, input_lengths, target_lengths):
+    """Launch the forward kernel in
+    :func:`~ctc_tpu_torch.ops.lattice_cuda.forward_plan`'s layout for the
+    width: ``(alpha [T, B, S], nll [B])`` from em ``[T, B, S]`` and the
+    uint8 ``[B, S]`` skip mask, nll as :func:`gather_nll` computes it."""
+    plan = forward_plan(em.shape[2], blank=True)
+    _require("blank_lattice_forward", em=em, skip_ok=skip_ok,
+             input_lengths=input_lengths, target_lengths=target_lengths)
     return launch(_SOURCE, "blank_lattice_forward", launch_counts,
-                  (em, skip_ok), torch.empty_like(em), em.shape)
+                  (em, skip_ok, input_lengths, target_lengths),
+                  forward_outputs(em), forward_dims(em.shape, plan))
 
 
 def blank_grad_kernel(alpha, skip_ok, input_lengths, target_lengths,
@@ -335,12 +344,14 @@ class BlankLatticeNLL(torch.autograd.Function):
     def forward(ctx, em, skip_ok, input_lengths, target_lengths, use_kernel):
         em = em.contiguous()
         if use_kernel:
-            alpha = blank_alpha_kernel(em, skip_ok)
+            alpha, nll = blank_alpha_kernel(em, skip_ok, input_lengths,
+                                            target_lengths)
         else:
             alpha = blank_alpha_plain(em, skip_ok)
+            nll = gather_nll(alpha, input_lengths, target_lengths)
         ctx.save_for_backward(alpha, skip_ok, input_lengths, target_lengths)
         ctx.use_kernel = use_kernel
-        return gather_nll(alpha, input_lengths, target_lengths)
+        return nll
 
     @staticmethod
     def backward(ctx, nll_bar):

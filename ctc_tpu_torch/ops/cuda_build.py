@@ -33,8 +33,9 @@ _I = ctypes.c_int
 #: c_void_p so ctypes does not cut them to 32 bits
 SIGNATURES = {
     "noblank_lattice.cu": {
-        # em, tgt, alpha, T, B, L, stream
-        "noblank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
+        # em, inlen, tgt, alpha, nll, T, B, L, layout, depth, threads,
+        # shared bytes, stream
+        "noblank_lattice_forward": (*(_P,) * 5, *(_I,) * 7, _P),
         # alpha, inlen, tgt, nll_bar, g, T, B, L, layout, chunk, threads,
         # shared bytes, stream
         "noblank_lattice_backward": (*(_P,) * 5, *(_I,) * 7, _P),
@@ -46,8 +47,9 @@ SIGNATURES = {
         "noblank_shard_backward": (*(_P,) * 10, *(_I,) * 6, _P),
     },
     "blank_lattice.cu": {
-        # em, skip_ok, alpha, T, B, S, stream
-        "blank_lattice_forward": (_P, _P, _P, _I, _I, _I, _P),
+        # em, skip_ok, inlen, tgt, alpha, nll, T, B, S, layout, depth,
+        # threads, shared bytes, stream
+        "blank_lattice_forward": (*(_P,) * 6, *(_I,) * 7, _P),
         # alpha, skip_ok, inlen, tgt, nll_bar, g, T, B, S, layout, chunk,
         # threads, shared bytes, stream
         "blank_lattice_backward": (*(_P,) * 6, *(_I,) * 7, _P),

@@ -10,7 +10,8 @@ Port of ``ctc_tpu/ops/lattice_pallas.py`` (kernels) and
 with cells at ``l >= target_length`` set to the -1e13 sentinel before the
 emission add.  The per-sample NLL is ``-alpha[input_length-1,
 target_length-1]``; the gradient is the analytic posterior recursion over
-the same lattice.
+the same lattice.  The forward kernel writes the NLL beside alpha
+(:func:`gather_nll` runs on the plain path only).
 
 * :func:`noblank_lattice_nll_cuda` launches the kernels of
   ``csrc/noblank_lattice.cu`` on a CUDA tensor and runs the plain version on
@@ -80,6 +81,21 @@ BACKWARD_NARROW_CHUNK = 16
 BACKWARD_WARPS_CHUNK = 8
 #: the most threads of a block of the rows layout (its launch bounds)
 BACKWARD_ROWS_THREADS = 1024
+#: the whole-lattice forward kernels' layouts, in the order of the kernels'
+#: kLayout: the row loop (em read in the step); a sample a warp and a lane
+#: a cell (warp); two cells a lane, one block a sample (pairs); the shard
+#: forward's block layout, em on a ring of shared rows (block)
+FORWARD_LAYOUTS = ("rows", "warp", "pairs", "block")
+#: the widest row of the warp layout (one warp) and of the pairs layout
+#: (16 warps of two cells a lane)
+FORWARD_WARP_WIDTH = 32
+FORWARD_PAIRS_WIDTH = 1024
+#: the em ring's rows in the warp and pairs layouts (16 and 32 ran no
+#: faster; PERF.md §6)
+FORWARD_DEPTH = 8
+#: the warp layout's block: a sample a warp, four a block (1-2% faster than
+#: one at the main shapes; PERF.md §6)
+FORWARD_WARP_THREADS = 128
 
 
 def lattice_kernel_symbol(family: str) -> re.Pattern:
@@ -273,11 +289,122 @@ def launch(source, name, counts, operands, out, dims):
     return out
 
 
-def noblank_alpha_kernel(em, target_lengths):
-    """Launch the forward kernel: alpha ``[T, B, L]`` from em ``[T, B, L]``."""
-    _require("noblank_lattice_forward", em=em, target_lengths=target_lengths)
+def forward_bytes(layout: str, width: int, depth: int, threads: int,
+                  blank: bool = False) -> int:
+    """Dynamic shared memory of a whole-lattice forward launch in
+    ``layout``: in the warp layout each thread's ``depth`` em ring slots;
+    in the pairs layout each thread's two ring columns of ``depth`` slots
+    and two exchange rows of 1 (blank 2) slots a warp (the kernels'
+    ``kForwardExchange``); in the block layout
+    ``2 + depth`` rows of floats (the kernels'
+    ``shard_forward_floats_per_cell``); in the rows layout the two carried
+    rows; blank adds the skip mask's byte a cell to the last two."""
+    if layout == "warp":
+        return 4 * depth * threads
+    if layout == "pairs":
+        return 4 * 2 * (depth * threads + threads // 32 * (1 + blank))
+    if layout == "block":
+        return (4 * (2 + depth) + blank) * width
+    if layout == "rows":
+        return (4 * 2 + blank) * width
+    raise ValueError(f"unknown forward layout {layout!r}: "
+                     f"{', '.join(FORWARD_LAYOUTS)}")
+
+
+def pairs_threads(width: int, blank: bool = False) -> int:
+    """Threads of the forward's pairs layout at lattice width ``width``: two
+    cells a lane, in whole warps; noblank's pairs are cells -1 .. width-1
+    (8-byte aligned, a row that starts at an odd float pairs its first cell
+    with the one before it)."""
+    return -(-(width + (not blank)) // 64) * 32
+
+
+def block_depth(width: int, blank: bool = False) -> int | None:
+    """The em ring of the block layout (the shard forward's, and the
+    whole-lattice forward's) at width ``width``: the deepest of
+    ``SHARD_DEPTHS`` whose rows fit beside the carried rows and
+    ``SHARD_FORWARD_STATIC_BYTES`` in ``SMEM_LIMIT`` (8 up to 5810 noblank
+    and 5669 blank, then 2 up to 14527 and 13672), else None."""
+    threads = min(-(-width // 32) * 32, 1024)
+    for depth in SHARD_DEPTHS:
+        if (forward_bytes("block", width, depth, threads, blank)
+                <= SMEM_LIMIT - SHARD_FORWARD_STATIC_BYTES):
+            return depth
+    return None
+
+
+def forward_plan(width: int,
+                 blank: bool = False) -> tuple[str, int, int, int]:
+    """``(layout, depth, threads, shared bytes)`` of the noblank (``blank``
+    False) or blank whole-lattice forward kernel at lattice width
+    ``width``.
+
+    Rows of up to ``FORWARD_WARP_WIDTH`` cells take the warp layout (a
+    sample a warp, ``FORWARD_WARP_THREADS`` threads a block, em on a
+    ``FORWARD_DEPTH``-row ring); rows of up to ``FORWARD_PAIRS_WIDTH`` the
+    pairs layout (:func:`pairs_threads`, the same ring).  Wider rows take
+    the block layout (the row in whole warps up to 1024 threads, which
+    stride over wider rows; the ring :func:`block_depth` rows deep) while
+    it fits, then the rows layout (the first kernels' row loop, em read in
+    the step) up to the widths whose two rows fit in ``SMEM_LIMIT`` (29056
+    noblank, 25827 blank), every width the first kernels took; raises
+    ``ValueError`` above them."""
+    if width <= FORWARD_WARP_WIDTH:
+        depth, threads = FORWARD_DEPTH, FORWARD_WARP_THREADS
+        return ("warp", depth, threads,
+                forward_bytes("warp", width, depth, threads, blank))
+    if width <= FORWARD_PAIRS_WIDTH:
+        depth, threads = FORWARD_DEPTH, pairs_threads(width, blank)
+        return ("pairs", depth, threads,
+                forward_bytes("pairs", width, depth, threads, blank))
+    threads = min(-(-width // 32) * 32, 1024)
+    depth = block_depth(width, blank)
+    if depth is not None:
+        return ("block", depth, threads,
+                forward_bytes("block", width, depth, threads, blank))
+    smem = forward_bytes("rows", width, 0, 0, blank)
+    if smem <= SMEM_LIMIT:
+        return "rows", 0, threads, smem
+    raise ValueError(
+        f"lattice width {width}: the forward's two carried rows do not fit "
+        f"in the {SMEM_LIMIT} bytes of shared memory a block may use")
+
+
+def forward_dims(shape, plan) -> tuple[int, ...]:
+    """The int arguments of a whole-lattice forward launch: ``T, B, W``,
+    then ``plan`` with its layout as the kernels' number."""
+    layout, depth, threads, smem = plan
+    return (*shape, FORWARD_LAYOUTS.index(layout), depth, threads, smem)
+
+
+def forward_operand(em, plan):
+    """em as the noblank forward kernel in ``plan`` reads it: the pairs
+    layout reads em in 8-byte pairs, so an em whose base is not 8-byte
+    aligned (a slice of a wider tensor) is copied; torch's allocations
+    are aligned."""
+    if plan[0] == "pairs" and em.data_ptr() % 8:
+        return em.clone()
+    return em
+
+
+def forward_outputs(em):
+    """The forward kernels' outputs for em ``[T, B, W]``: alpha and nll
+    ``[B]``."""
+    return (torch.empty_like(em),
+            torch.empty((em.shape[1],), dtype=em.dtype, device=em.device))
+
+
+def noblank_alpha_kernel(em, input_lengths, target_lengths):
+    """Launch the forward kernel in :func:`forward_plan`'s layout for the
+    width: ``(alpha [T, B, L], nll [B])`` from em ``[T, B, L]``, nll as
+    :func:`gather_nll` computes it."""
+    plan = forward_plan(em.shape[2])
+    _require("noblank_lattice_forward", em=em, input_lengths=input_lengths,
+             target_lengths=target_lengths)
+    em = forward_operand(em, plan)
     return launch(_SOURCE, "noblank_lattice_forward", launch_counts,
-                  (em, target_lengths), torch.empty_like(em), em.shape)
+                  (em, input_lengths, target_lengths), forward_outputs(em),
+                  forward_dims(em.shape, plan))
 
 
 def backward_bytes(layout: str, width: int, chunk: int, threads: int,
@@ -400,10 +527,10 @@ def shard_forward_plan(width: int,
         return depth, threads, shard_forward_bytes(width, depth, threads,
                                                    blank)
     threads = min(-(-width // 32) * 32, 1024)
-    for depth in SHARD_DEPTHS:
-        smem = shard_forward_bytes(width, depth, threads, blank)
-        if smem <= SMEM_LIMIT - SHARD_FORWARD_STATIC_BYTES:
-            return depth, threads, smem
+    depth = block_depth(width, blank)
+    if depth is not None:
+        return depth, threads, shard_forward_bytes(width, depth, threads,
+                                                   blank)
     raise ValueError(
         f"lattice width {width}: the shard forward's carried rows and em "
         f"ring do not fit in the {SMEM_LIMIT} bytes of shared memory a "
@@ -545,12 +672,14 @@ class NoBlankLatticeNLL(torch.autograd.Function):
     def forward(ctx, em, input_lengths, target_lengths, use_kernel):
         em = em.contiguous()
         if use_kernel:
-            alpha = noblank_alpha_kernel(em, target_lengths)
+            alpha, nll = noblank_alpha_kernel(em, input_lengths,
+                                              target_lengths)
         else:
             alpha = noblank_alpha_plain(em, target_lengths)
+            nll = gather_nll(alpha, input_lengths, target_lengths)
         ctx.save_for_backward(alpha, input_lengths, target_lengths)
         ctx.use_kernel = use_kernel
-        return gather_nll(alpha, input_lengths, target_lengths)
+        return nll
 
     @staticmethod
     def backward(ctx, nll_bar):

@@ -298,7 +298,8 @@ def test_dispatch_and_operand_checks():
         bl.blank_lattice_nll_cuda(em_t, skip_t, lens[0], lens[1][:1])
     # the launchers take CUDA tensors only: no quiet CPU run
     with pytest.raises(ValueError, match="CUDA"):
-        bl.blank_alpha_kernel(em_t, skip_t.to(torch.uint8))
+        bl.blank_alpha_kernel(em_t, skip_t.to(torch.uint8),
+                              *(x.to(torch.int32) for x in lens))
     assert tlosses.LOSS_FNS["blank"] is tlosses.ctc_loss
 
 

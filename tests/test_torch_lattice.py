@@ -155,6 +155,7 @@ def test_wrapper_validates_operands(rng):
     # the launchers take CUDA tensors only: no quiet CPU run
     with pytest.raises(ValueError, match="CUDA"):
         lc.noblank_alpha_kernel(torch.tensor(em),
+                                torch.tensor(in_len, dtype=torch.int32),
                                 torch.tensor(tgt_len, dtype=torch.int32))
 
 

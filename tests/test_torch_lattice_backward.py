@@ -225,7 +225,7 @@ def _ctypes_of(declaration):
 
 @pytest.mark.parametrize("family", list(BLANK))
 def test_old_signatures_type_the_earlier_launchers(family):
-    assert lattice_ab.OLD_SIGNATURES[family] == _ctypes_of(
+    assert lattice_ab.OLD_SIGNATURES["backward"][family] == _ctypes_of(
         OLD_LAUNCHERS[family])
 
 
@@ -256,10 +256,12 @@ def test_build_parent_types_the_symbol_it_is_given(tmp_path, monkeypatch):
     monkeypatch.setattr(shard_ab, "PARENT_BUILD", tmp_path / "out")
     libs = shard_ab.build_parent(tmp_path, symbol="lattice_backward",
                                  tag="_lattice_ab",
-                                 signatures=lattice_ab.OLD_SIGNATURES)
+                                 signatures=lattice_ab.OLD_SIGNATURES[
+                                     "backward"])
     for family in BLANK:
         fn = getattr(libs[family], f"{family}_lattice_backward")
-        assert tuple(fn.argtypes) == lattice_ab.OLD_SIGNATURES[family]
+        assert tuple(fn.argtypes) == lattice_ab.OLD_SIGNATURES["backward"][
+            family]
         assert fn.restype is ctypes.c_int
         assert libs[family].path.endswith(f"{family}_lattice_lattice_ab.so")
     # one nvcc a source, with the parent's own headers first on the path
