@@ -10,7 +10,8 @@ sharded greedy decode), checks that each run went through its kernels, and
 times each kernel beside its plain version, its bound and, where one
 exists, the PyTorch call that computes the same function.  Then the same
 for the ten forward-lattice probe kernels at three shapes (the last at the
-edges of the row-9 kernels' em ring), and both probe entry points
+edges of the em ring), the three row-10 kernels at a fourth past the ring
+(em read inside the step), and both probe entry points
 (``python -m ctc_tpu_torch.probes.fwd_ops`` and ``.expdomain_fwd``) at the
 bench shape, each in a process of its own.  Prints one JSON line per
 phase; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -138,6 +139,9 @@ PROBE_EDGE = (37, 100, 21)
 # (lanes masked, rows not 16-byte aligned) and L_PAD 1504, where only a
 # two-slot ring fits beside the carry; the carry-only variant runs chunk 3
 PROBE_RING_EDGE = (3, 21, 1500)
+# row 10 only (row 9 refuses it): L_PAD 2000, past the em ring, where
+# expdomain_kernel reads em inside the step
+PROBE_PAST_RING = (3, 21, 2000)
 PROBE_CHUNK = 16
 PROBE_ITERS = 20  # per timed run of the entry points
 # each kernel repeats its plain version's f32 operations in order (expf,
@@ -1688,10 +1692,11 @@ def probe_cases(shape, device):
 
 def phase_probes(card, name):
     """Each probe kernel against its plain version on the card at the
-    bench, the edge and the ring-edge shape, then its times in turns
-    (plain, kernel, kernel, plain), its device time, its bound, its em ring
-    depth (row 9; row 10 loads em inside the step) and, for copy and add,
-    the PyTorch calls that compute the same function."""
+    bench, the edge and the ring-edge shape (row 10 also past the ring),
+    then its times in turns (plain, kernel, kernel, plain), its device
+    time, its bound, its em ring depth (0: row 10's em read inside the
+    step; 8 on a batch of whole 16-byte rows: filled by tensor copies) and,
+    for copy and add, the PyTorch calls that compute the same function."""
     import torch
 
     from ctc_tpu_torch.ops import probe_cuda as pc
@@ -1699,9 +1704,20 @@ def phase_probes(card, name):
     rate = hbm_rate(name)
     result = {}
     for label, shape in (("bench", PROBE_SHAPE), ("edge", PROBE_EDGE),
-                         ("ring_edge", PROBE_RING_EDGE)):
+                         ("ring_edge", PROBE_RING_EDGE),
+                         ("past_ring", PROBE_PAST_RING)):
         cases, em = probe_cases(shape, "cuda")
         chunk = probe_chunk(shape[0])
+        l_pad = pc.pad_rows(shape[2])
+        if label == "past_ring":
+            try:
+                pc.probe_body(em, "copy")
+            except ValueError:
+                pass
+            else:
+                fail(f"probe_copy took L_PAD={l_pad}, past its em ring")
+            cases = {k: case for k, case in cases.items()
+                     if case[2] == "expdomain_kernel"}
         if shape[0] % chunk:
             try:
                 pc.probe_noout(em, chunk)
@@ -1737,11 +1753,13 @@ def phase_probes(card, name):
                      else shape[0])
             row = {
                 "phase": "probes", "kernel": kname, "shape": label,
-                "shape_TBL": list(shape), "l_pad": pc.pad_rows(shape[2]),
+                "shape_TBL": list(shape), "l_pad": l_pad,
                 "T_run": t_run,
                 "chunk": chunk if kname == "probe_noout" else PROBE_CHUNK,
-                "ring_depth": (None if symbol == "expdomain_kernel"
-                               else pc.ring_plan(pc.pad_rows(shape[2]))[0]),
+                "ring_depth": (pc.expdomain_plan(
+                    l_pad, kname[len("probe_fwd_"):])[0]
+                    if symbol == "expdomain_kernel"
+                    else pc.ring_plan(l_pad)[0]),
                 "max_abs_dev": max_dev(got, want),
                 "rtol_atol": [PROBE_RTOL, atol],
                 "kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],

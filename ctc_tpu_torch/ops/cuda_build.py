@@ -67,11 +67,12 @@ SIGNATURES = {
                         "lse_exp2")},
         # em, out, T, L, L_pad, B, chunk, ring depth, shared bytes, stream
         "probe_noout": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-        # em, outside, out, T, L_pad, B, stream
-        "probe_fwd_log": (_P, _P, _P, _I, _I, _I, _P),
-        "probe_fwd_exp": (_P, _P, _P, _I, _I, _I, _P),
-        # em, outside, out, T, L_pad, B, chunk, stream
-        "probe_fwd_exp_renorm": (_P, _P, _P, _I, _I, _I, _I, _P),
+        # em, outside, out, T, L_pad, B, ring depth, shared bytes, stream
+        "probe_fwd_log": (_P, _P, _P, *(_I,) * 5, _P),
+        "probe_fwd_exp": (_P, _P, _P, *(_I,) * 5, _P),
+        # em, outside, out, T, L_pad, B, chunk, ring depth, shared bytes,
+        # stream
+        "probe_fwd_exp_renorm": (_P, _P, _P, *(_I,) * 6, _P),
     },
 }
 

@@ -37,7 +37,11 @@ CUDA tensor and runs the plain version (``*_plain``) on a CPU tensor; it
 takes nothing else and never falls back.  Row 9's kernels stage em through
 a shared-memory ring whose depth :func:`ring_plan` picks from ``L_PAD``;
 they refuse, before any launch, an ``L_PAD`` whose carry and a two-slot
-ring do not fit in a block's shared memory (``L_PAD`` above 1816).
+ring do not fit in a block's shared memory (``L_PAD`` above 1816).  Row
+10's kernels take a ring of the same slots where it fits
+(:func:`expdomain_plan`; filled by tensor copies, :func:`tensor_copies`,
+or by each thread's 4-byte copies), else read em inside the step, up to
+``L_PAD`` 2408; wider ones are refused before any launch.
 """
 
 from __future__ import annotations
@@ -58,9 +62,22 @@ _SOURCE = "fwd_probes.cu"
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
-#: the em ring depths row 9's kernels are built for, deepest first
+#: the em ring depths the kernels are built for, deepest first
 _RING_DEPTHS = (8, 2)
 _TILE_B = 8  # samples per block (``kTileB``)
+_ROW_THREADS = 64  # row threads of a block's column (``kRingRows``)
+#: exp_renorm's per-warp column maxima, two buffers (``kPartialFloats``)
+PARTIAL_BYTES = 2 * (_TILE_B * _ROW_THREADS // 32) * _TILE_B * 4
+#: the widest ``L_PAD`` row 10's kernels take: the first row-10 kernel's
+#: widest, ``(3 L_PAD + 32) * 32`` bytes of shared memory
+EXPDOMAIN_MAX_L_PAD = 2408
+#: row 10's variants, as ``expdomain_plan`` takes them
+EXPDOMAIN_KINDS = ("log", "exp", "exp_renorm")
+#: the log variant reads em inside the step below this ``L_PAD`` (one row
+#: a thread): its em enters the step last, behind the log-add, which hides
+#: the load there; at L_PAD 24 the ring ran 1.10-1.13x the first row-10
+#: kernel's time, the step 0.88x, at every B from 100 to 1024 (PERF.md §6)
+LOG_IN_STEP_BELOW = 64
 
 
 def reset_launch_counts() -> None:
@@ -73,6 +90,18 @@ def pad_rows(n: int) -> int:
     return -(-n // 8) * 8
 
 
+def _ring_fit(l_pad: int, extra: int = 0) -> tuple[int, int] | None:
+    """The deepest ring of ``_RING_DEPTHS`` whose slots, the carry's double
+    buffer (each ``[L_PAD, 8]`` f32) and ``extra`` bytes fit in
+    ``SMEM_LIMIT``: ``(depth, bytes)``, or None."""
+    slot = l_pad * _TILE_B * 4
+    for depth in _RING_DEPTHS:
+        smem = (depth + 2) * slot + extra
+        if smem <= SMEM_LIMIT:
+            return depth, smem
+    return None
+
+
 def ring_plan(l_pad: int) -> tuple[int, int]:
     """``(depth, shared-memory bytes)`` of row 9's kernels at ``L_PAD``
     rows: a ring of ``depth`` em slots and the carry's double buffer, each
@@ -80,15 +109,47 @@ def ring_plan(l_pad: int) -> tuple[int, int]:
     in ``SMEM_LIMIT`` (``L_PAD`` up to 720), else two, whose one slot in
     flight is then 23 KB or more.  Raises ``ValueError`` where not even
     two fit (``L_PAD`` above 1816)."""
-    slot = l_pad * _TILE_B * 4
-    fits = SMEM_LIMIT // slot - 2  # slots beside the two carry buffers
-    for depth in _RING_DEPTHS:
-        if depth <= fits:
-            return depth, (depth + 2) * slot
-    raise ValueError(
-        f"L_PAD={l_pad}: the em ring does not fit; two slots of {slot} "
-        f"bytes beside the {2 * slot}-byte carry need more than the "
-        f"{SMEM_LIMIT} bytes of shared memory a block may use")
+    plan = _ring_fit(l_pad)
+    if plan is None:
+        slot = l_pad * _TILE_B * 4
+        raise ValueError(
+            f"L_PAD={l_pad}: the em ring does not fit; two slots of {slot} "
+            f"bytes beside the {2 * slot}-byte carry need more than the "
+            f"{SMEM_LIMIT} bytes of shared memory a block may use")
+    return plan
+
+
+def expdomain_plan(l_pad: int, kind: str) -> tuple[int, int]:
+    """``(depth, shared-memory bytes)`` of row 10's ``kind`` kernel
+    (:data:`EXPDOMAIN_KINDS`) at ``L_PAD`` rows: as :func:`ring_plan`, with
+    ``PARTIAL_BYTES`` more for ``exp_renorm``'s partials (its two-slot ring
+    ends at ``L_PAD`` 1808, the others' at 1816); depth 0, em read inside
+    the step beside the carry, past the ring up to ``EXPDOMAIN_MAX_L_PAD``
+    and for ``log`` below ``LOG_IN_STEP_BELOW``.  Raises ``ValueError``
+    above ``EXPDOMAIN_MAX_L_PAD``."""
+    if kind not in EXPDOMAIN_KINDS:
+        raise ValueError(f"unknown row-10 kind {kind!r}; one of "
+                         f"{EXPDOMAIN_KINDS}")
+    if l_pad > EXPDOMAIN_MAX_L_PAD:
+        raise ValueError(
+            f"L_PAD={l_pad}: row 10's kernels take rows up to "
+            f"{EXPDOMAIN_MAX_L_PAD}, the widest the first row-10 kernel "
+            "took in a block's shared memory")
+    extra = PARTIAL_BYTES if kind == "exp_renorm" else 0
+    plan = _ring_fit(l_pad, extra)
+    if plan is None or (kind == "log" and l_pad < LOG_IN_STEP_BELOW):
+        return 0, 2 * l_pad * _TILE_B * 4 + extra
+    return plan
+
+
+def tensor_copies(em, depth: int) -> bool:
+    """Whether row 10's ring of ``depth`` slots over em ``[T, L_PAD, B]``
+    is filled by tensor copies (the launcher's rule): eight slots, rows of
+    whole 16-byte pieces (B a multiple of 4, em's base 16-byte aligned) and
+    ``L_PAD`` a multiple of 8."""
+    _, l_pad, batch = em.shape
+    return (depth == 8 and batch % 4 == 0 and l_pad % 8 == 0
+            and em.data_ptr() % 16 == 0)
 
 
 def _check_em(em) -> None:
@@ -261,11 +322,14 @@ def probe_noout_kernel(em, chunk):
                   (steps, rows, out.shape[1], batch, chunk, *ring))
 
 
-def _expdomain_kernel(name, em, outside, *chunk):
+def _expdomain_kernel(name, em, outside, *chunk, plan=None):
+    """Launch row 10's ``name`` in ``plan`` (``(depth, shared bytes)``;
+    default :func:`expdomain_plan`'s for em's ``L_PAD``)."""
+    plan = plan or expdomain_plan(em.shape[1], name[len("probe_fwd_"):])
     _require(name, em=em, outside=outside)
     _check_outside(em, outside)
     return launch(_SOURCE, name, launch_counts, (em, outside),
-                  torch.empty_like(em), (*em.shape, *chunk))
+                  torch.empty_like(em), (*em.shape, *chunk, *plan))
 
 
 def probe_fwd_log_kernel(em, outside):

@@ -49,7 +49,7 @@ KINDS = ("copy", "add", "lse", "noout")
 CHUNK = 16
 _ROWS_LINE = "constexpr int kRingRows = 64;"
 _EDITS = {
-    "noload": ("cp_async4(slot + k * kRowStep, p);", ""),
+    "noload": ("cp_async::copy4(slot + k * kRowStep, p);", ""),
     "nostore": ("if (store) *o = v;", ""),
 }
 
@@ -86,8 +86,9 @@ def build_all(builds) -> dict[str, ctypes.CDLL]:
             continue
         src = SWEEP_DIR / f"fwd_probes_{build}.cu"
         src.write_text(source)
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-               str(src.with_suffix(".so")), str(src)]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+               f"-I{cuda_build.CSRC}", "-o", str(src.with_suffix(".so")),
+               str(src)]
         procs[source] = (src.with_suffix(".so"), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))

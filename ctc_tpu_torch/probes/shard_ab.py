@@ -71,38 +71,57 @@ OLD_SIGNATURES = {"noblank": (*(_P,) * 5, _I, _I, _I, _P),
                   "blank": (*(_P,) * 5, _I, _I, _I, _P)}
 
 
-def build_parent(parent: Path, symbol="shard_forward", edit=None, tag="",
-                 signatures=None) -> dict[str, ctypes.CDLL]:
-    """Compile both lattice sources of ``parent`` (with ``edit(text,
-    family)`` applied, where given), one ``nvcc`` each, all started
-    together, into libraries named with ``tag``; return each family's
-    library with its ``*_<symbol>`` launcher typed as ``signatures[family]``
-    (default ``OLD_SIGNATURES``, the shard forward's)."""
-    signatures = signatures or OLD_SIGNATURES
+def compile_parent(parent: Path, sources: dict[str, str], edit=None,
+                   tag="") -> dict[str, ctypes.CDLL]:
+    """Compile ``ctc_tpu_torch/csrc/<sources[key]>`` of ``parent`` for each
+    key (with ``edit(text, key)`` applied, where given), one ``nvcc`` each,
+    all started together, with the parent's own headers first on the
+    include path, into ``PARENT_BUILD`` as libraries named after the source
+    and ``tag``; return each key's library, its launchers not yet typed."""
+    csrc = parent / "ctc_tpu_torch" / "csrc"
     PARENT_BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for family in OLD_SIGNATURES:
-        src = parent / "ctc_tpu_torch" / "csrc" / f"{family}_lattice.cu"
+    for key, source in sources.items():
+        src = csrc / source
+        stem = Path(source).stem
         if edit is not None:
-            text = edit(src.read_text(), family)
-            src = PARENT_BUILD / f"{family}_lattice{tag}.cu"
+            text = edit(src.read_text(), key)
+            src = PARENT_BUILD / f"{stem}{tag}.cu"
             src.write_text(text)
-        out = PARENT_BUILD / f"{family}_lattice{tag}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-               f"-I{parent / 'ctc_tpu_torch' / 'csrc'}", "-o", str(out),
-               str(src)]
-        procs[family] = (out, subprocess.Popen(
+        out = PARENT_BUILD / f"{stem}{tag}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, f"-I{csrc}", "-o",
+               str(out), str(src)]
+        procs[key] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for family, (out, proc) in procs.items():
+    for key, (out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the parent's {family}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        fn = getattr(lib, f"{family}_{symbol}")
-        fn.argtypes = list(signatures[family])
-        fn.restype = ctypes.c_int
-        libs[family] = lib
+            raise RuntimeError(f"nvcc failed on the parent's {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(out))
+    return libs
+
+
+def type_launcher(lib, name: str, argtypes) -> None:
+    """Give ``lib``'s launcher ``name`` its argtypes; it returns a
+    ``cudaError_t``."""
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+
+
+def build_parent(parent: Path, symbol="shard_forward", edit=None, tag="",
+                 signatures=None) -> dict[str, ctypes.CDLL]:
+    """Compile both lattice sources of ``parent`` (:func:`compile_parent`)
+    and return each family's library with its ``*_<symbol>`` launcher typed
+    as ``signatures[family]`` (default ``OLD_SIGNATURES``, the shard
+    forward's)."""
+    signatures = signatures or OLD_SIGNATURES
+    libs = compile_parent(
+        parent, {family: f"{family}_lattice.cu" for family in OLD_SIGNATURES},
+        edit, tag)
+    for family, lib in libs.items():
+        type_launcher(lib, f"{family}_{symbol}", signatures[family])
     return libs
 
 
