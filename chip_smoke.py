@@ -6,9 +6,12 @@ LSTM head through the command-line entry point at full width with the
 NoBlankCTC loss and with the blank CTC loss, then both again with the
 lattice's T axis split into 4 shards (``--seq-parallel 4``), decodes from
 the checkpoints they wrote (greedy, beam, Viterbi alignment, and the
-sharded greedy decode), checks that each run went through its kernels, and
-times each kernel beside its plain version, its bound and, where one
-exists, the PyTorch call that computes the same function.  Then the same
+sharded greedy decode), then trains on a Charades-format corpus written
+from a seed (the reference's default run through ``cli.exe``, and the ver2
+binary and c_class blank variants, on cached features; the data layer
+timed), checks that each run went through its kernels, and times each
+kernel beside its plain version, its bound and, where one exists, the
+PyTorch call that computes the same function.  Then the same
 for the ten forward-lattice probe kernels at three shapes (the last at the
 edges of the em ring), the three row-10 kernels at a fourth past the ring
 (em read inside the step), and both probe entry points
@@ -128,6 +131,45 @@ SEQ_MAIN = {"noblank": (64, 256, 64, 8), "blank": (64, 256, 32, 4)}  # T B L M
 # the long-T shape the pipeline exists for: bench_seq_scaling.py:30's T,
 # B, L over 4 shards and 4 microbatches, so one shard is t_s 1024, B 4
 SEQ_LONG = {"noblank": (4096, 16, 24, 4), "blank": (4096, 16, 24, 4)}
+# the Charades phase: a Charades-format corpus written from a seed
+# (ctc_tpu_torch.data.charades_corpus: 240 train and 56 val videos drawn to
+# Charades' published means, empty frames, [N, 10, 1024] f32 features per
+# split and loader), then the reference's default run (cli.exe's preset:
+# --temporal 10 --gap 2 --num-trans 2, batch 10, 1024-d features, a 33-verb
+# head, --loss noblank) and two variants through cli.main at the same
+# geometry, 2 epochs each
+CHARADES_GEOMETRY = ["--temporal", "10", "--gap", "2", "--num-trans", "2"]
+CHARADES_BATCH = 10  # the config's default, which the preset keeps
+CHARADES_EPOCHS = 2
+CHARADES_MIN_TRAIN_BATCHES = 16
+# (label, entry, flags before the paths, kernel family, feature file stem)
+CHARADES_RUNS = (
+    ("default", "exe", [], "noblank", "features"),
+    ("ver2_binary", "main", CHARADES_GEOMETRY + [
+        "--dataset", "charades_ver2", "--loss", "binary"], "noblank",
+     "features_ver2"),
+    ("c_class_blank", "main", CHARADES_GEOMETRY + [
+        "--dataset", "charades_ver2_c_class", "--loss", "blank"], "blank",
+     "features_cclass"),
+)
+# the data layer's stages, timed inside each run by wrapping, for the run,
+# the functions the Charades loaders call: {stage: [(module, function)]};
+# feature_read also takes the row reads from the memmaps load_features opens
+_LOADERS = "ctc_tpu_torch.data.loaders."
+CHARADES_STAGES = {
+    "csv_parse": [("ctc_tpu_torch.data.charades", "parse_charades_csv")],
+    "frame_count": [("ctc_tpu_torch.data.charades", "count_frames")],
+    "prepare": [("ctc_tpu_torch.data.charades", "cached_prepare"),
+                (_LOADERS + "charades_ver2", "prepare_ver2"),
+                (_LOADERS + "charades_ver2_c_class", "prepare_c_class")],
+    "feature_read": [(_LOADERS + "_common", "load_features")],
+    "collate": [(_LOADERS + "charades_ctc_next_pred", "collate_verb_ctc"),
+                (_LOADERS + "charades_ctc_next_pred", "collate_binary_ctc"),
+                (_LOADERS + "charades_ctc_next_pred", "collate_joint_ctc"),
+                (_LOADERS + "charades_ver2", "collate_ver2"),
+                (_LOADERS + "charades_ver2_c_class", "collate_c_class")],
+}
+SENTINEL_SCALE = 1e20  # a blank-CTC loss past this is the sentinel's (1e30)
 FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 
 # the forward-lattice probes (ops/probe_cuda.py): their entry points' bench
@@ -630,6 +672,231 @@ def phase_decode(blank_cache, noblank_cache):
               "val_loss": metrics["loss"], "rows": len(rows) - 1,
               "file": os.path.basename(metrics[key]),
               "first_rows": rows[1:4]})
+
+
+class _TimedRows:
+    """A features memmap whose row reads add to ``seconds[stage]``."""
+
+    def __init__(self, rows, seconds, stage):
+        self._rows, self._seconds, self._stage = rows, seconds, stage
+
+    def __getitem__(self, idx):
+        import numpy as np
+
+        t = time.perf_counter()
+        out = np.asarray(self._rows[idx])
+        self._seconds[self._stage] += time.perf_counter() - t
+        return out
+
+
+@contextlib.contextmanager
+def timed_stages(stages):
+    """For the block, wrap each stage's functions so that their calls add
+    to the stage's seconds and calls; yields ``(seconds, calls)``."""
+    import functools
+    import importlib
+
+    seconds = dict.fromkeys(stages, 0.0)
+    calls = dict.fromkeys(stages, 0)
+
+    def wrap(stage, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[stage] += time.perf_counter() - t
+            calls[stage] += 1
+            if stage == "feature_read":
+                out = _TimedRows(out, seconds, stage)
+            return out
+        return timed
+
+    saved = []
+    try:
+        for stage, targets in stages.items():
+            for module, name in targets:
+                mod = importlib.import_module(module)
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, wrap(stage, getattr(mod, name)))
+        yield seconds, calls
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def infeasible_windows(cfg, batches) -> list:
+    """Per batch, how many windows' blank-CTC targets need more frames than
+    the window has (``losses.blank.min_frames``); their loss is at the
+    lattice sentinel's scale.  0s for the blank-free losses."""
+    import torch
+
+    from ctc_tpu_torch.losses.blank import min_frames
+
+    if cfg.loss != "blank":
+        return [0] * len(batches)
+    return [int((min_frames(b["paths"], b["target_lengths"])
+                 > torch.as_tensor(b["input_lengths"])).sum())
+            for b in batches]
+
+
+def charades_step_vs_cpu(cfg, batch):
+    """One step's loss and gradients on the first Charades batch: the card
+    (kernels) against the CPU (plain lattice), same weights, dropout off.
+    Returns max |dev| of the gradients."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch import losses
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train.trainer import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = LSTMHead(cfg.extract_feat_dim, cfg.head_classes, dropout_rate=0.0)
+    ref.reset_parameters(torch.Generator().manual_seed(7))
+    weights = ref.state_dict()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = LSTMHead(cfg.extract_feat_dim, cfg.head_classes,
+                         dropout_rate=0.0)
+        model.load_state_dict(weights)
+        model.to(dev)
+        b = to_device(batch, dev)
+        logits = model(b["feats"].transpose(0, 1), train=True)
+        loss = losses.LOSS_FNS[cfg.loss](logits, b["paths"],
+                                         b["input_lengths"],
+                                         b["target_lengths"])
+        loss.backward()
+        out[dev] = (float(loss.detach()), {n: p.grad.detach().cpu()
+                                  for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    if not np.isclose(l_gpu, l_cpu, rtol=STEP_LOSS_RTOL, atol=0.0):
+        fail(f"charades {cfg.dataset} step loss card {l_gpu} vs cpu {l_cpu}")
+    for name, want in g_cpu.items():
+        check_close(f"charades {cfg.dataset} grad {name}", g_gpu[name], want,
+                    GRAD_RTOL, GRAD_ATOL)
+    return {"loss_cuda": l_gpu, "loss_cpu": l_cpu,
+            "grad_max_abs_dev": max(max_dev(g_gpu[n], g_cpu[n])
+                                    for n in g_cpu)}
+
+
+def phase_charades(work, card):
+    """The Charades data layer end to end on the card: write the corpus,
+    run the reference's default run through ``cli.exe.run`` and the ver2
+    binary and c_class blank variants through ``cli.main``, each on the
+    cached features for 2 epochs; check each run's kernel launches against
+    its loader's batch count and that its loss falls (where a window's
+    blank-CTC target needs more frames than it has, that its top-1 rises);
+    time the data layer inside the run, stage by stage; hold one step on
+    the first batch whose windows are all feasible to the CPU.  Returns
+    ``{run: launch counts}``."""
+    import torch
+
+    from ctc_tpu_torch import config
+    from ctc_tpu_torch.cli import exe
+    from ctc_tpu_torch.cli import main as cli_main
+    from ctc_tpu_torch.data.charades_corpus import write_corpus
+
+    t0 = time.perf_counter()
+    corpus = write_corpus(os.path.join(work, "charades"), seed=0)
+    write_s = time.perf_counter() - t0
+    samples = corpus["samples"]
+    train_batches = samples["features_train"] // CHARADES_BATCH
+    if train_batches < CHARADES_MIN_TRAIN_BATCHES:
+        fail(f"charades: the default run's train split has {train_batches} "
+             f"batches of {CHARADES_BATCH}, fewer than "
+             f"{CHARADES_MIN_TRAIN_BATCHES}")
+    paths = ["--rgb-data", corpus["rgb_data"],
+             "--train-file", corpus["train_file"],
+             "--val-file", corpus["val_file"],
+             "--features-dir", corpus["features_dir"]]
+    emit({"phase": "charades_corpus", "seconds": write_s,
+          "samples": samples, "nvidia_smi": card})
+    entries = {"exe": exe.run, "main": cli_main.main}
+    all_launches = {}
+    for label, entry, flags, family, stem in CHARADES_RUNS:
+        cache = os.path.join(work, f"charades_{label}")
+        argv = flags + paths + ["--cache-dir", cache,
+                                "--resume", os.path.join(cache, "fresh"),
+                                "--epochs", str(CHARADES_EPOCHS),
+                                "--device", "cuda"]
+        # the data layer inside the run: the CLI's get_dataset, and each
+        # stage's functions in it
+        data_s, out = [], []
+        get_dataset = cli_main.get_dataset
+
+        def timed(cfg, get_dataset=get_dataset, data_s=data_s, out=out):
+            t = time.perf_counter()
+            out.append(get_dataset(cfg))
+            data_s.append(time.perf_counter() - t)
+            return out[-1]
+
+        cli_main.get_dataset = timed
+        try:
+            with timed_stages(CHARADES_STAGES) as (stages, stage_calls):
+                reset_counts()
+                t0 = time.perf_counter()
+                history = entries[entry](argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = read_counts()
+        finally:
+            cli_main.get_dataset = get_dataset
+        if len(out) != 1 or not all(stage_calls.values()):
+            fail(f"charades {label}: get_dataset called {len(out)} times, "
+                 f"stage calls {stage_calls}")
+        train, val = out[0]
+        n_train, n_val = len(train), len(val)
+        if (n_train, n_val) != (samples[f"{stem}_train"] // CHARADES_BATCH,
+                                samples[f"{stem}_val"] // CHARADES_BATCH):
+            fail(f"charades {label}: {n_train} / {n_val} batches from "
+                 f"{samples[f'{stem}_train']} / {samples[f'{stem}_val']} "
+                 f"windows")
+        train_steps = n_train * CHARADES_EPOCHS
+        eval_steps = n_val * CHARADES_EPOCHS
+        want = expect_counts(**{family: (train_steps + eval_steps,
+                                         train_steps)})
+        if launches != want:
+            fail(f"charades {label}: launch counts {launches}, expected "
+                 f"{want}")
+        cfg = config.parse((exe.PRESET if entry == "exe" else []) + argv)
+        infeasible = infeasible_windows(cfg, train)
+        losses = [h["train"]["loss"] for h in history]
+        top1 = [h["train"]["top1"] for h in history]
+        if len(losses) != CHARADES_EPOCHS or not all(
+                x == x and abs(x) < float("inf") for x in losses):
+            fail(f"charades {label}: training losses {losses}")
+        if not any(infeasible):
+            if not losses[-1] < losses[0]:
+                fail(f"charades {label}: training loss did not fall: "
+                     f"{losses}")
+        # a window at the sentinel's scale in every epoch holds each
+        # epoch's loss there; the learning shows in top-1
+        elif not (min(losses) > SENTINEL_SCALE and top1[-1] > top1[0]):
+            fail(f"charades {label}: {sum(infeasible)} infeasible windows, "
+                 f"losses {losses}, top-1 {top1}")
+        first = next(b for b, n in zip(train, infeasible) if n == 0)
+        step = charades_step_vs_cpu(cfg, first)
+        emit({"phase": "charades", "run": label,
+              "entry": f"ctc_tpu_torch.cli.{entry}", "argv": argv,
+              "dataset": cfg.dataset, "loss": cfg.loss,
+              "head_classes": cfg.head_classes,
+              "batch_size": cfg.batch_size, "feat_dim": cfg.extract_feat_dim,
+              "batch_shapes": {k: list(v.shape) for k, v in first.items()},
+              "train_batches": n_train, "val_batches": n_val,
+              "train_steps": train_steps, "eval_steps": eval_steps,
+              "infeasible_train_windows": sum(infeasible),
+              "infeasible_train_batches": sum(n > 0 for n in infeasible),
+              "infeasible_val_windows": sum(infeasible_windows(cfg, val)),
+              "launches": launches, "train_loss_by_epoch": losses,
+              "train_top1_by_epoch": top1,
+              "val_loss_by_epoch": [h["val"]["loss"] for h in history],
+              "seconds": seconds, "data_s_in_run": sum(data_s),
+              "train_s_in_run": seconds - sum(data_s),
+              "step_s_host_avg": [h["train"]["time"] for h in history],
+              "data_stage_s": stages, "data_stage_calls": stage_calls,
+              "step_vs_cpu": step, "nvidia_smi": card})
+        all_launches[label] = launches
+    return all_launches
 
 
 def phase_step_vs_cpu():
@@ -1845,6 +2112,7 @@ def main() -> None:
         blank_launches = phase_main_path_blank(blank_cache)
         phase_decode(blank_cache, noblank_cache)
         seq_launches = phase_main_path_seq(work)
+        charades_launches = phase_charades(work, card)
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()
@@ -1883,6 +2151,9 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # the same kernel's launches in each Charades run
+            "charades_launches": {run: n[kname] for run, n in
+                                  charades_launches.items() if n[kname]},
         })
     # the probes' path is their entry points at the bench shape
     for kname, meta in PROBE_KERNELS.items():

@@ -138,13 +138,14 @@ UNPORTED = (
     ("--video-eval", lambda c: c.video_eval, "Queue 1 item 10"),
     ("--transition-metrics", lambda c: c.transition_metrics,
      "Queue 1 item 10"),
-    ("--features-dir", lambda c: bool(c.features_dir), "Queue 1 item 11"),
-    ("a dataset other than synthetic",
-     lambda c: c.dataset != "synthetic" and not c.dataset.endswith("_pixels"),
-     "Queue 1 item 11"),
     ("a *_pixels dataset", lambda c: c.dataset.endswith("_pixels"),
      "Queue 1 item 12"),
-    ("--rgb-pretrained-weights", lambda c: bool(c.rgb_pretrained_weights),
+    # without cached features a Charades dataset extracts them with the I3D
+    ("a Charades dataset without --features-dir (feature extraction)",
+     lambda c: c.dataset != "synthetic" and not c.features_dir,
+     "Queue 1 item 12"),
+    ("--rgb-pretrained-weights without --features-dir",
+     lambda c: bool(c.rgb_pretrained_weights) and not c.features_dir,
      "Queue 1 item 12"),
     ("--finetune-i3d", lambda c: c.finetune_i3d, "Queue 1 item 12"),
     ("--i3d-act-dtype bf16", lambda c: c.i3d_act_dtype != "f32",

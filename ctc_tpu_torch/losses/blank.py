@@ -62,6 +62,21 @@ def blank_emissions_and_skip(scores, targets, blank, *, normalize=False):
     return em, skip_ok
 
 
+def min_frames(targets, target_lengths, blank: int = 0) -> torch.Tensor:
+    """``[B]`` fewest frames a lattice path through each target takes: one
+    a label, and one more before each label that may not be skipped into
+    (a repeat of the label before it, or a label equal to the blank id).
+    A sample with fewer input frames is infeasible: its loss is at the
+    sentinel's scale and its gradient is not defined."""
+    targets = torch.as_tensor(targets).long()
+    lengths = torch.as_tensor(target_lengths, device=targets.device).long()
+    prev = torch.cat([targets[:, :1], targets[:, :-1]], dim=1)
+    pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    extra = ((pos >= 1) & (pos < lengths[:, None])
+             & ((targets == blank) | (targets == prev)))
+    return lengths + extra.sum(dim=1)
+
+
 def ctc_loss(logits, targets, input_lengths, target_lengths, *,
              blank: int = 0, reduction: str = "mean", normalize: bool = True,
              implementation: str | None = None):

@@ -125,8 +125,10 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
         (["--loss", "joint"], "item 8"),
         (["--video-eval"], "item 10"),
         (["--transition-metrics"], "item 10"),
-        (["--dataset", "charades_ctc_next_pred"], "item 11"),
         (["--dataset", "charades_pixels"], "item 12"),
+        pytest.param(["--dataset", "charades_ctc_next_pred"], "item 12",
+                     id="charades-without-features-dir-item 12"),
+        (["--rgb-pretrained-weights", "rgb_i3d.pt"], "item 12"),
     ],
     ids=lambda x: x if isinstance(x, str) else x[0].lstrip("-"),
 )
