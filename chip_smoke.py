@@ -9,7 +9,11 @@ the checkpoints they wrote (greedy, beam, Viterbi alignment, and the
 sharded greedy decode), then trains on a Charades-format corpus written
 from a seed (the reference's default run through ``cli.exe``, and the ver2
 binary and c_class blank variants, on cached features; the data layer
-timed), checks that each run went through its kernels, and times each
+timed), evaluates on the same corpus (per-epoch video mAP and transition
+metrics, ``--evaluate`` with and without a groundtruth lookup, the ver2
+object mAP, the joint (object, verb) head with its relation tagging and
+decode; the eval held to the CPU's), checks that each run went through
+its kernels, and times each
 kernel beside its plain version, its bound and, where one exists, the
 PyTorch call that computes the same function.  Then the same
 for the ten forward-lattice probe kernels at three shapes (the last at the
@@ -26,6 +30,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -169,6 +174,22 @@ CHARADES_STAGES = {
                 (_LOADERS + "charades_ver2", "collate_ver2"),
                 (_LOADERS + "charades_ver2_c_class", "collate_c_class")],
 }
+# the eval phase times, inside each run, the validation pass (the eval
+# step, with the transition metrics where asked), the video-level eval
+# (the model over every val_video window, then mAP and relation tagging
+# in numpy) and the decode
+EVAL_STAGES = {
+    "validate": [("ctc_tpu_torch.train.trainer", "Trainer.validate")],
+    "video_eval": [("ctc_tpu_torch.eval.video", "evaluate_videos"),
+                   ("ctc_tpu_torch.eval.video", "evaluate_videos_joint")],
+    "decode": [("ctc_tpu_torch.eval.video", "decode_windows")],
+}
+TRANSITION_KEYS = ("trans_top1", "trans_top5", "recall_top1", "recall_top5")
+# the eval on the card against the CPU's, from one checkpoint: window
+# scores as the LSTM head's f32 matmuls sum in another order; the mAP from
+# the same ranking, up to the float64 sums of numpy
+EVAL_SCORE_RTOL, EVAL_SCORE_ATOL = 1e-5, 1e-6
+EVAL_MAP_ATOL = 1e-6
 SENTINEL_SCALE = 1e20  # a blank-CTC loss past this is the sentinel's (1e30)
 FP32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 
@@ -715,13 +736,17 @@ def timed_stages(stages):
     try:
         for stage, targets in stages.items():
             for module, name in targets:
-                mod = importlib.import_module(module)
-                saved.append((mod, name, getattr(mod, name)))
-                setattr(mod, name, wrap(stage, getattr(mod, name)))
+                # a dotted name is an attribute of a class in the module
+                owner = importlib.import_module(module)
+                *parents, name = name.split(".")
+                for parent in parents:
+                    owner = getattr(owner, parent)
+                saved.append((owner, name, getattr(owner, name)))
+                setattr(owner, name, wrap(stage, getattr(owner, name)))
         yield seconds, calls
     finally:
-        for mod, name, fn in reversed(saved):
-            setattr(mod, name, fn)
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
 
 
 def infeasible_windows(cfg, batches) -> list:
@@ -788,7 +813,7 @@ def phase_charades(work, card):
     blank-CTC target needs more frames than it has, that its top-1 rises);
     time the data layer inside the run, stage by stage; hold one step on
     the first batch whose windows are all feasible to the CPU.  Returns
-    ``{run: launch counts}``."""
+    ``({run: launch counts}, the corpus's path flags, its window counts)``."""
     import torch
 
     from ctc_tpu_torch import config
@@ -896,6 +921,309 @@ def phase_charades(work, card):
               "data_stage_s": stages, "data_stage_calls": stage_calls,
               "step_vs_cpu": step, "nvidia_smi": card})
         all_launches[label] = launches
+    return all_launches, paths, samples
+
+
+def eval_run(entry, argv):
+    """One CLI run on the card with the launch counts reset before it, the
+    EVAL_STAGES timed inside it and its printed lines captured: ``(result,
+    launches, seconds, stage seconds, stage calls, printed text)``."""
+    import torch
+
+    out = io.StringIO()
+    with timed_stages(EVAL_STAGES) as (stages, calls), \
+            contextlib.redirect_stdout(out):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = entry(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    return result, launches, seconds, stages, calls, out.getvalue()
+
+
+def eval_row(label, argv, launches, seconds, stages, calls, card, **extra):
+    """The phase's JSON line for one run; the eval wall time is the
+    validation passes, the video-level evals and the decode together."""
+    return {"phase": "eval", "run": label, "argv": argv,
+            "launches": launches, "seconds": seconds,
+            "eval_s": sum(stages.values()), "eval_stage_s": stages,
+            "eval_stage_calls": calls, **extra, "nvidia_smi": card}
+
+
+def check_launches(label, launches, want):
+    if launches != want:
+        fail(f"eval {label}: launch counts {launches}, expected {want}")
+
+
+def check_history(label, history, run_dir, *, transition=False):
+    """Each epoch's mAP finite, in score.csv's sixth column and as its
+    checkpoint's score; the transition metrics in the val metrics where
+    asked."""
+    import csv
+    import math
+
+    import torch
+
+    maps = [h["val"].get("mAP", float("nan")) for h in history]
+    if len(maps) != CHARADES_EPOCHS or not all(map(math.isfinite, maps)):
+        fail(f"eval {label}: per-epoch mAP {maps}")
+    with open(os.path.join(run_dir, "score.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    if [len(r) for r in rows] != [6] * len(maps) or [
+            float(r[5]) for r in rows] != maps:
+        fail(f"eval {label}: score.csv {rows}, mAP {maps}")
+    for epoch, m in enumerate(maps):
+        payload = torch.load(os.path.join(run_dir, "ckpt", f"{epoch}.pt"),
+                             map_location="cpu", weights_only=True)
+        if payload["score"] != m:
+            fail(f"eval {label}: epoch {epoch} checkpoint score "
+                 f"{payload['score']}, mAP {m}")
+    if transition and not all(set(TRANSITION_KEYS) <= set(h["val"])
+                              for h in history):
+        fail(f"eval {label}: val metrics {sorted(history[0]['val'])} lack "
+             f"{TRANSITION_KEYS}")
+    return maps
+
+
+def check_falls(label, history):
+    losses = [h["train"]["loss"] for h in history]
+    if not (all(x == x and abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"eval {label}: training losses {losses}")
+    return losses
+
+
+def printed_map(label, out) -> float:
+    """The value on the run's ``video mAP:`` line."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("video mAP: ")]
+    if len(lines) != 1:
+        fail(f"eval {label}: {len(lines)} 'video mAP:' lines in {out!r}")
+    return float(lines[0].split()[2])
+
+
+def eval_vs_cpu(cfg, run_dir, batch):
+    """From the default run's last checkpoint: ``evaluate_videos`` and one
+    eval batch's transition metrics on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch.data.loaders import charades_ctc_next_pred
+    from ctc_tpu_torch.eval.video import evaluate_videos, score_windows
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train.trainer import (
+        TrainState, make_eval_step, to_device,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, table = charades_ctc_next_pred.get_val_video(cfg)
+    payload = torch.load(os.path.join(run_dir, "ckpt",
+                                      f"{CHARADES_EPOCHS - 1}.pt"),
+                         map_location="cpu", weights_only=True)
+    step = make_eval_step(cfg.loss, transition_metrics=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = LSTMHead(cfg.extract_feat_dim, cfg.head_classes)
+        model.load_state_dict(payload["model"])
+        model.to(dev)
+        scores = score_windows(model, data["features"])
+        video = evaluate_videos(model, data, table,
+                                num_verbs=cfg.head_classes)
+        metrics = step(TrainState(model, None), to_device(batch, dev))
+        out[dev] = (scores, video["mAP"],
+                    {k: float(v) for k, v in metrics.items()})
+    (s_cpu, map_cpu, m_cpu), (s_gpu, map_gpu, m_gpu) = out["cpu"], out["cuda"]
+    if not np.allclose(s_gpu, s_cpu, rtol=EVAL_SCORE_RTOL,
+                       atol=EVAL_SCORE_ATOL):
+        fail(f"eval vs cpu: window scores max |dev| "
+             f"{float(np.abs(s_gpu - s_cpu).max())}")
+    if abs(map_gpu - map_cpu) > EVAL_MAP_ATOL:
+        fail(f"eval vs cpu: mAP card {map_gpu} cpu {map_cpu}")
+    for k in TRANSITION_KEYS + ("top1", "top5"):
+        if m_gpu[k] != m_cpu[k]:
+            fail(f"eval vs cpu: {k} card {m_gpu[k]} cpu {m_cpu[k]}")
+    if not np.isclose(m_gpu["loss"], m_cpu["loss"], rtol=LOSS_RTOL,
+                      atol=LOSS_ATOL):
+        fail(f"eval vs cpu: loss card {m_gpu['loss']} cpu {m_cpu['loss']}")
+    return {"windows": int(s_cpu.shape[0]),
+            "score_max_abs_dev": float(np.abs(s_gpu - s_cpu).max()),
+            "map_cuda": map_gpu, "map_cpu": map_cpu,
+            "metrics_cuda": m_gpu, "metrics_cpu": m_cpu,
+            "tolerance": {"score_rtol": EVAL_SCORE_RTOL,
+                          "score_atol": EVAL_SCORE_ATOL,
+                          "map_atol": EVAL_MAP_ATOL,
+                          "transition": "exact"}}
+
+
+def phase_eval(work, card, paths, samples):
+    """Evaluation on the card on the Charades corpus of phase charades, at
+    the preset geometry: the default run with per-epoch video mAP and
+    transition metrics, ``--evaluate`` from its checkpoint with the rebuilt
+    gt table and with a ``--groundtruth-lookup`` pickle of it, the ver2
+    binary run scored on the objects, and the joint (object, verb) head
+    trained, evaluated and decoded; then the eval of one checkpoint on the
+    card against the CPU.  Checks each run's launches against its loader's
+    batch counts and records each run's eval seconds.  Returns ``{run:
+    launch counts}``."""
+    import csv
+
+    from ctc_tpu_torch import config
+    from ctc_tpu_torch.cli import exe
+    from ctc_tpu_torch.cli import main as cli_main
+    from ctc_tpu_torch.data.loaders import charades_ctc_next_pred
+    from ctc_tpu_torch.eval import video as video_mod
+    from ctc_tpu_torch.utils.groundtruth import save_groundtruth
+
+    epochs = CHARADES_EPOCHS
+    batches = {stem: (samples[f"{stem}_train"] // CHARADES_BATCH,
+                      samples[f"{stem}_val"] // CHARADES_BATCH)
+               for stem in ("features", "features_ver2")}
+    n_train, n_val = batches["features"]
+    train_args = paths + ["--epochs", str(epochs), "--device", "cuda"]
+    run_name = exe.PRESET[exe.PRESET.index("--name") + 1]
+    all_launches = {}
+
+    # the default run, mAP and transition metrics every epoch
+    cache = os.path.join(work, "eval_default")
+    run_dir = os.path.join(cache, run_name)
+    argv = train_args + ["--cache-dir", cache,
+                         "--resume", os.path.join(cache, "fresh"),
+                         "--video-eval", "--transition-metrics"]
+    history, launches, seconds, stages, calls, out = eval_run(exe.run, argv)
+    check_launches("default", launches, expect_counts(
+        noblank=((n_train + n_val) * epochs, n_train * epochs)))
+    maps = check_history("default", history, run_dir, transition=True)
+    losses = check_falls("default", history)
+    if out.count("video mAP: ") != epochs:
+        fail(f"eval default: printed {out!r}")
+    all_launches["eval_default"] = launches
+    emit(eval_row("default", argv, launches, seconds, stages, calls, card,
+                  train_loss_by_epoch=losses, map_by_epoch=maps,
+                  val_by_epoch=[h["val"] for h in history]))
+
+    # --evaluate from its checkpoint: the rebuilt table, then a lookup
+    # pickle written from it
+    ev_argv = paths + ["--cache-dir", cache, "--resume", run_dir,
+                       "--evaluate", "--device", "cuda"]
+    cfg = config.parse(exe.PRESET + ev_argv)
+    _, table = charades_ctc_next_pred.get_val_video(cfg)
+    lookup = os.path.join(work, "groundtruth.p")
+    save_groundtruth(lookup, table)
+    printed = {}
+    for label, extra in (("evaluate", []),
+                         ("evaluate_lookup", ["--groundtruth-lookup",
+                                              lookup])):
+        metrics, launches, seconds, stages, calls, out = eval_run(
+            exe.run, ev_argv + extra)
+        check_launches(label, launches, expect_counts(noblank=(n_val, 0)))
+        shown = printed_map(label, out)
+        if extra and f"groundtruth lookup: {lookup} ({len(table)} " \
+                "videos)" not in out:
+            fail(f"eval {label}: no lookup line in {out!r}")
+        if f"{shown:.4f}" != f"{metrics['video_mAP']:.4f}":
+            fail(f"eval {label}: printed {shown}, metrics "
+                 f"{metrics['video_mAP']}")
+        all_launches[f"eval_{label}"] = launches
+        emit(eval_row(label, ev_argv + extra, launches, seconds, stages,
+                      calls, card, video_mAP=metrics["video_mAP"],
+                      gt_videos=len(table), val_metrics={
+                          k: metrics[k] for k in ("loss", "top1", "top5")}))
+        printed[label] = metrics["video_mAP"]
+    if printed["evaluate"] != printed["evaluate_lookup"]:
+        fail(f"eval: rebuilt table mAP {printed['evaluate']}, lookup "
+             f"{printed['evaluate_lookup']}")
+    if abs(printed["evaluate"] - maps[-1]) > EVAL_MAP_ATOL:
+        fail(f"eval: --evaluate mAP {printed['evaluate']}, last epoch's "
+             f"{maps[-1]}")
+
+    # ver2 binary: its 38-object head is scored on gt column 1
+    cache = os.path.join(work, "eval_ver2")
+    argv = CHARADES_GEOMETRY + ["--dataset", "charades_ver2", "--loss",
+                                "binary"] + train_args + [
+        "--cache-dir", cache, "--resume", os.path.join(cache, "fresh"),
+        "--video-eval"]
+    scored = []
+    verb_map = video_mod.video_verb_map
+
+    def spy(video_scores, gt_table, num_verbs, gt_col=2):
+        scored.append((num_verbs, gt_col))
+        return verb_map(video_scores, gt_table, num_verbs, gt_col)
+
+    video_mod.video_verb_map = spy
+    try:
+        history, launches, seconds, stages, calls, out = eval_run(
+            cli_main.main, argv)
+    finally:
+        video_mod.video_verb_map = verb_map
+    t2, v2 = batches["features_ver2"]
+    check_launches("ver2_binary", launches, expect_counts(
+        noblank=((t2 + v2) * epochs, t2 * epochs)))
+    maps = check_history("ver2_binary", history, os.path.join(cache, "test"))
+    if scored != [(38, 1)] * epochs:
+        fail(f"eval ver2_binary: scored (classes, gt column) {scored}")
+    all_launches["eval_ver2_binary"] = launches
+    emit(eval_row("ver2_binary", argv, launches, seconds, stages, calls,
+                  card, train_loss_by_epoch=check_falls("ver2_binary",
+                                                        history),
+                  map_by_epoch=maps, scored_classes_gt_col=scored))
+
+    # the joint (object, verb) head: trained with its per-epoch mAP, then
+    # evaluated and decoded; each step runs rows 1-2 twice
+    cache = os.path.join(work, "eval_joint")
+    run_dir = os.path.join(cache, run_name)
+    argv = train_args + ["--cache-dir", cache, "--loss", "joint",
+                         "--resume", os.path.join(cache, "fresh"),
+                         "--video-eval"]
+    history, launches, seconds, stages, calls, out = eval_run(exe.run, argv)
+    check_launches("joint", launches, expect_counts(
+        noblank=(2 * (n_train + n_val) * epochs, 2 * n_train * epochs)))
+    maps = check_history("joint", history, run_dir)
+    losses = check_falls("joint", history)
+    if out.count("relation mAP: ") != epochs:
+        fail(f"eval joint: printed {out!r}")
+    all_launches["eval_joint"] = launches
+    emit(eval_row("joint", argv, launches, seconds, stages, calls, card,
+                  train_loss_by_epoch=losses, map_by_epoch=maps))
+    ev_argv = paths + ["--cache-dir", cache, "--resume", run_dir,
+                       "--loss", "joint", "--evaluate", "--decode",
+                       "--device", "cuda"]
+    metrics, launches, seconds, stages, calls, out = eval_run(exe.run,
+                                                              ev_argv)
+    check_launches("joint_evaluate", launches,
+                   expect_counts(noblank=(2 * n_val, 0)))
+    cfg = config.parse(exe.PRESET + ev_argv)
+    relation = [ln for ln in out.splitlines()
+                if ln.startswith("relation tagging: mAP ")]
+    printed_map("joint_evaluate", out)
+    if cfg.head_classes != 71 or "object mAP" not in out or not relation:
+        fail(f"eval joint_evaluate: head {cfg.head_classes}, printed "
+             f"{out!r}")
+    for key in ("video_mAP", "object_mAP", "relation_mAP"):
+        if not metrics[key] == metrics[key]:
+            fail(f"eval joint_evaluate: {key} {metrics[key]}")
+    with open(metrics["decoded_csv"], newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    ids = [int(c) for r in rows for c in r[3].split()]
+    if len(rows) != n_val * CHARADES_BATCH or not ids or not all(
+            0 <= c < cfg.v_class for c in ids):
+        fail(f"eval joint_evaluate: {len(rows)} decoded rows, ids "
+             f"{sorted(set(ids))}")
+    all_launches["eval_joint_evaluate"] = launches
+    emit(eval_row("joint_evaluate", ev_argv, launches, seconds, stages,
+                  calls, card, video_mAP=metrics["video_mAP"],
+                  object_mAP=metrics["object_mAP"],
+                  relation_mAP=metrics["relation_mAP"],
+                  relation_recall_at=metrics["relation_recall_at"],
+                  relation_prec_at=metrics["relation_prec_at"],
+                  relation_line=relation[0], decoded_rows=len(rows)))
+
+    # the card against the CPU, from the default run's checkpoint
+    cache = os.path.join(work, "eval_default")
+    cfg = config.parse(exe.PRESET + paths + ["--cache-dir", cache])
+    batch = cli_main.get_dataset(cfg)[1][0]
+    emit({"phase": "eval", "run": "card_vs_cpu",
+          **eval_vs_cpu(cfg, os.path.join(cache, run_name), batch),
+          "nvidia_smi": card})
     return all_launches
 
 
@@ -2112,7 +2440,10 @@ def main() -> None:
         blank_launches = phase_main_path_blank(blank_cache)
         phase_decode(blank_cache, noblank_cache)
         seq_launches = phase_main_path_seq(work)
-        charades_launches = phase_charades(work, card)
+        charades_launches, corpus_paths, samples = phase_charades(work,
+                                                                  card)
+        charades_launches.update(phase_eval(work, card, corpus_paths,
+                                            samples))
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()

@@ -1,9 +1,11 @@
-"""Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path,
-``--evaluate`` and its ``--decode`` / ``--decode-beam`` / ``--decode-align``,
-and ``--seq-parallel`` / ``--seq-microbatches``).
+"""Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path
+with ``--video-eval`` and ``--transition-metrics``, ``--evaluate`` with its
+video mAP, ``--groundtruth-lookup``, ``--my-dataset`` predictions and
+``--decode`` / ``--decode-beam`` / ``--decode-align``, and
+``--seq-parallel`` / ``--seq-microbatches``).
 
 Seed, tee, build the model and the trainer, build the data loaders
-(string-keyed dataset registry), optionally resume, then either validate
+(string-keyed dataset registry), optionally resume, then either evaluate
 once (``--evaluate``) or run the epoch loop with CSV score logs and
 per-epoch checkpoints.  Runs on ``--device`` (default ``cuda``); with no
 card it raises unless ``--device cpu`` was passed.
@@ -29,6 +31,109 @@ def get_dataset(cfg):
         f"ctc_tpu_torch.data.loaders.{cfg.dataset}"
     )
     return module.get(cfg)
+
+
+def get_val_video(cfg):
+    """``(data, gt_table)`` of the dataset's val_video split, or None when
+    its loader has none."""
+    module = importlib.import_module(
+        f"ctc_tpu_torch.data.loaders.{cfg.dataset}"
+    )
+    get_vv = getattr(module, "get_val_video", None)
+    return None if get_vv is None else get_vv(cfg)
+
+
+def evaluate_video_split(cfg, model, data, gt_table) -> dict:
+    """The video-level eval the loss's head takes: verb, object and
+    relation metrics for the joint head; else the mAP in the head's class
+    space (multi-hot heads predict objects: gt column 1)."""
+    from ctc_tpu_torch.eval.video import (
+        evaluate_videos,
+        evaluate_videos_joint,
+    )
+
+    if cfg.loss == "joint":
+        return evaluate_videos_joint(model, data, gt_table,
+                                     num_verbs=cfg.v_class,
+                                     num_objects=cfg.o_class)
+    return evaluate_videos(model, data, gt_table,
+                           num_verbs=cfg.head_classes,
+                           gt_col=(1 if cfg.head_is_object_space else 2))
+
+
+def evaluate_videos_once(cfg, model, metrics) -> None:
+    """``--evaluate``'s video mAP on the val_video split, against the
+    ``--groundtruth-lookup`` pickle where it exists, and for the joint head
+    the object mAP and the relation-tagging line; adds to ``metrics``."""
+    from ctc_tpu_torch.utils.groundtruth import load_groundtruth
+
+    vv = get_val_video(cfg)
+    if vv is None:
+        return
+    data, gt_table = vv
+    # a precomputed lookup pickle overrides the rebuilt table
+    if cfg.groundtruth_lookup and os.path.exists(cfg.groundtruth_lookup):
+        gt_table = load_groundtruth(cfg.groundtruth_lookup)
+        print(f"groundtruth lookup: {cfg.groundtruth_lookup} "
+              f"({len(gt_table)} videos)")
+    elif cfg.groundtruth_lookup != config_lib.Config.groundtruth_lookup:
+        # asked for but missing: say so rather than silently scoring
+        # against the rebuilt table
+        print(f"WARNING: --groundtruth-lookup {cfg.groundtruth_lookup} not "
+              f"found; using the rebuilt gt table")
+    if not len(data["ids"]):
+        return
+    out = evaluate_video_split(cfg, model, data, gt_table)
+    metrics["video_mAP"] = out["mAP"]
+    if cfg.loss != "joint":
+        print(f"video mAP: {out['mAP']:.4f}")
+        return
+    rec = " ".join(f"R@{n}={v:.4f}" for n, v in out["recall_at"].items())
+    prec = " ".join(f"P@{n}={v:.4f}" for n, v in out["prec_at"].items())
+    print(f"video mAP: {out['mAP']:.4f} "
+          f"(object mAP {out['object_mAP']:.4f})")
+    print(f"relation tagging: mAP {out['relation_mAP']:.4f} {rec} {prec}")
+    metrics["object_mAP"] = out["object_mAP"]
+    metrics["relation_mAP"] = out["relation_mAP"]
+    metrics["relation_recall_at"] = out["recall_at"]
+    metrics["relation_prec_at"] = out["prec_at"]
+
+
+def evaluate_own_videos(cfg, model) -> None:
+    """The ``--my-dataset`` loader's windows: top-k predictions into the
+    run's ``myvideo_predictions.csv``."""
+    from ctc_tpu_torch.eval.video import evaluate_own_video
+
+    module = importlib.import_module(
+        f"ctc_tpu_torch.data.loaders.{cfg.my_dataset}"
+    )
+    data, _ = module.get(cfg)
+    if len(data["ids"]):
+        out_csv = os.path.join(cfg.cache, "myvideo_predictions.csv")
+        evaluate_own_video(model, data, out_csv=out_csv)
+        print(f"own-video predictions: {len(data['ids'])} windows "
+              f"-> {out_csv}")
+
+
+def make_video_eval(cfg):
+    """``--video-eval``'s per-epoch evaluation ``state -> {"mAP": ...}``
+    over the val_video split, or None when the dataset has no such
+    windows."""
+    vv = get_val_video(cfg)
+    if vv is None or not len(vv[0]["ids"]):
+        return None
+    data, gt_table = vv
+
+    def video_eval(state):
+        out = evaluate_video_split(cfg, state.model, data, gt_table)
+        if cfg.loss == "joint":
+            print(f"video mAP: {out['mAP']:.4f} relation mAP: "
+                  f"{out['relation_mAP']:.4f}")
+        else:
+            print(f"video mAP: {out['mAP']:.4f}")
+        return out
+
+    return video_eval
 
 
 def check_seq_flags(cfg) -> None:
@@ -105,6 +210,8 @@ def main(argv=None):
         device=device,
         seq_parallel=cfg.seq_parallel,
         seq_microbatches=cfg.seq_microbatches,
+        transition_metrics=cfg.transition_metrics,
+        joint_object_weight=cfg.joint_object_weight,
     )
     state = trainer.init_state()
     start_epoch = cfg.start_epoch
@@ -135,6 +242,8 @@ def main(argv=None):
                 blank=(0 if cfg.loss == "blank" else -1),
                 out_csv=out_csv, seq_mesh=seq_mesh,
                 beam_width=cfg.decode_beam,
+                # joint (o, v) head: decode the verb transition path
+                head_slice=(cfg.v_class if cfg.loss == "joint" else None),
             )
             print(f"decoded transition paths: {len(dec['lengths'])} windows "
                   f"-> {out_csv}")
@@ -150,13 +259,26 @@ def main(argv=None):
             print(f"aligned target paths: {len(ali['score'])} windows "
                   f"-> {align_csv}")
             metrics["alignment_csv"] = align_csv
-        print("video eval skipped: not ported to ctc_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item 10)")
+        try:
+            evaluate_videos_once(cfg, model, metrics)
+        except Exception as e:
+            print(f"video eval skipped: {e}")
+        try:
+            evaluate_own_videos(cfg, model)
+        except Exception as e:
+            print(f"own-video eval skipped: {e}")
         return metrics
 
+    video_eval = None
+    if cfg.video_eval:
+        try:
+            video_eval = make_video_eval(cfg)
+        except Exception as e:
+            print(f"per-epoch video eval disabled: {e}")
     state, history = trainer.fit(train_batches, val_batches,
                                  epochs=cfg.epochs, state=state,
-                                 start_epoch=start_epoch)
+                                 start_epoch=start_epoch,
+                                 video_eval=video_eval)
     if history:
         print(f"done: best val top1 "
               f"{max(h['val']['top1'] for h in history):.3f}")

@@ -85,7 +85,7 @@ class Config:
     profile_dir: str = ""
 
     # loss / kernel selection
-    loss: str = "noblank"  # noblank | binary | blank | ce | bce | mlce
+    loss: str = "noblank"  # noblank | binary | blank | joint | ce | bce | mlce
     joint_object_weight: float = 1.0
     lattice_impl: str | None = None  # torch | cuda | None (by device)
     compute_dtype: str = "f32"
@@ -116,6 +116,12 @@ class Config:
             "joint": self.v_class + self.o_class,
         }.get(self.loss, self.v_class)
 
+    @property
+    def head_is_object_space(self) -> bool:
+        """True when the head predicts the 38-object space (multi-hot
+        losses); decides which gt-table column video eval scores against."""
+        return self.loss in ("binary", "bce", "mlce")
+
 
 #: (flag, predicate on the config, ROADMAP item that ports it)
 UNPORTED = (
@@ -132,12 +138,6 @@ UNPORTED = (
     ("--max-restarts", lambda c: c.max_restarts > 0, "Queue 1 item 14"),
     ("--compute-dtype bf16", lambda c: c.compute_dtype != "f32",
      "Queue 1 item 16"),
-    ("--loss joint", lambda c: c.loss == "joint", "Queue 1 item 8"),
-    ("--joint-object-weight", lambda c: c.joint_object_weight != 1.0,
-     "Queue 1 item 8"),
-    ("--video-eval", lambda c: c.video_eval, "Queue 1 item 10"),
-    ("--transition-metrics", lambda c: c.transition_metrics,
-     "Queue 1 item 10"),
     ("a *_pixels dataset", lambda c: c.dataset.endswith("_pixels"),
      "Queue 1 item 12"),
     # without cached features a Charades dataset extracts them with the I3D

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from ctc_tpu_torch.data.synthetic import synthetic_feature_batches
+from ctc_tpu_torch.data.synthetic import (
+    pack_joint_batches,
+    synthetic_feature_batches,
+    synthetic_val_video,
+)
 
 
 def _final_step_batches(batches, loss: str):
@@ -51,6 +55,9 @@ def get(cfg):
         num_classes=cfg.head_classes,
         binary=(cfg.loss in ("binary", "bce", "mlce")),
     )
+    if cfg.loss == "joint":
+        # verb-lattice batches packed with the fixed verb->object map
+        common.update(num_classes=cfg.v_class, binary=False)
     train = synthetic_feature_batches(num_batches=8, seed=cfg.manual_seed,
                                       **common)
     val = synthetic_feature_batches(num_batches=2, seed=cfg.manual_seed + 1,
@@ -58,4 +65,20 @@ def get(cfg):
     if cfg.loss in ("ce", "bce", "mlce"):
         train = _final_step_batches(train, cfg.loss)
         val = _final_step_batches(val, cfg.loss)
+    elif cfg.loss == "joint":
+        train = pack_joint_batches(train, cfg.o_class)
+        val = pack_joint_batches(val, cfg.o_class)
     return train, val
+
+
+def get_val_video(cfg):
+    """Synthetic val_video split + gt_table (the Charades loaders'
+    ``get_val_video`` contract), so ``--evaluate``'s video mAP and, under
+    ``--loss joint``, the (o, v) relation eval run without Charades data."""
+    return synthetic_val_video(
+        temporal=max(cfg.temporal, 2),
+        feat_dim=cfg.extract_feat_dim,
+        v_class=cfg.v_class,
+        o_class=cfg.o_class,
+        seed=cfg.manual_seed,
+    )

@@ -81,3 +81,65 @@ def synthetic_feature_batches(
             }
         )
     return batches
+
+
+def pack_joint_batches(batches, o_class: int):
+    """Rewrite verb-lattice batches into the joint (o, v) packed convention
+    (:mod:`ctc_tpu_torch.losses.joint`): the object path is the one-hot of
+    ``verb % o_class`` per position — a fixed verb->object map, so both
+    heads are learnable from the same class-conditioned features (the
+    synthetic stand-in for the reference's factored action->(object, verb)
+    vocabulary, datasets/charades_ctc_next_pred.py:105-368)."""
+    out = []
+    for b in batches:
+        b = dict(b)
+        v_paths = np.asarray(b["paths"])  # [B, L] int, -1 padded
+        bsz, max_l = v_paths.shape
+        o_paths = np.zeros((bsz, max_l, o_class), np.float32)
+        tgt = np.asarray(b["target_lengths"])
+        for i in range(bsz):
+            ln = int(tgt[i])
+            o_paths[i, np.arange(ln), v_paths[i, :ln] % o_class] = 1.0
+        b["paths"] = np.concatenate(
+            [v_paths[:, :, None].astype(np.float32), o_paths], axis=2
+        )
+        b["target_lengths"] = np.stack([tgt, tgt], axis=1)
+        out.append(b)
+    return out
+
+
+def synthetic_val_video(
+    *,
+    num_videos: int = 12,
+    windows_per_video: int = 4,
+    temporal: int = 10,
+    feat_dim: int = 1024,
+    v_class: int = 33,
+    o_class: int = 38,
+    seed: int = 0,
+):
+    """A val_video-style split for the synthetic dataset: per-video windows
+    whose features are class-conditioned on that video's verb set, plus the
+    ``{vid: [[s, o, v], ...]}`` gt_table (objects via the fixed
+    ``verb % o_class`` map) — gives ``--evaluate``'s video mAP and the
+    (o, v) relation eval a consumer without Charades on disk."""
+    rng = np.random.default_rng(seed + 77)
+    class_emb = np.random.default_rng(12345).standard_normal(
+        (v_class, feat_dim)
+    ).astype(np.float32)
+    ids, feats, gt_table = [], [], {}
+    for vi in range(num_videos):
+        vid = f"SYN{vi:03d}"
+        n_acts = int(rng.integers(1, 4))
+        verbs = rng.choice(v_class, size=n_acts, replace=False)
+        gt_table[vid] = [[0, int(v) % o_class, int(v)] for v in verbs]
+        for _ in range(windows_per_video):
+            active = verbs[rng.integers(0, n_acts, size=temporal)]
+            feats.append(
+                class_emb[active]
+                + 0.1 * rng.standard_normal((temporal, feat_dim)).astype(
+                    np.float32
+                )
+            )
+            ids.append(vid)
+    return {"ids": ids, "features": np.stack(feats)}, gt_table

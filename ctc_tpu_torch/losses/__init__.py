@@ -1,8 +1,6 @@
 """Public loss API (port of ``ctc_tpu/losses/__init__.py``).
 
-``LOSS_FNS`` is the loss-kind registry the train and eval steps read.  The
-joint (object, verb) loss is not ported yet: its entry raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``LOSS_FNS`` is the loss-kind registry the train and eval steps read.
 """
 
 from ctc_tpu_torch.losses.blank import ctc_loss
@@ -11,6 +9,7 @@ from ctc_tpu_torch.losses.classification import (
     cross_entropy,
     multilabel_cross_entropy,
 )
+from ctc_tpu_torch.losses.joint import joint_ov_ctc_loss
 from ctc_tpu_torch.losses.noblank import (
     no_blank_binary_ctc_loss,
     no_blank_ctc_loss,
@@ -30,22 +29,12 @@ def _final_step(core):
     return fn
 
 
-def _not_ported(kind: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"--loss {kind} is not ported to ctc_tpu_torch yet "
-            f"(ROADMAP.md {item})"
-        )
-
-    return fn
-
-
 #: loss-kind registry shared by the train and eval steps
 LOSS_FNS = {
     "noblank": no_blank_ctc_loss,
     "binary": no_blank_binary_ctc_loss,
     "blank": ctc_loss,
-    "joint": _not_ported("joint", "Queue 1 item 8"),
+    "joint": joint_ov_ctc_loss,
     "ce": _final_step(cross_entropy),
     "bce": _final_step(bce_with_logits),
     "mlce": _final_step(multilabel_cross_entropy),
@@ -55,6 +44,7 @@ __all__ = [
     "no_blank_ctc_loss",
     "no_blank_binary_ctc_loss",
     "ctc_loss",
+    "joint_ov_ctc_loss",
     "multilabel_cross_entropy",
     "cross_entropy",
     "bce_with_logits",

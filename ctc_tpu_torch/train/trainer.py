@@ -19,12 +19,19 @@ import itertools
 import os
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from ctc_tpu_torch import losses
-from ctc_tpu_torch.train.metrics import AverageMeter, topk_accuracy
+from ctc_tpu_torch.losses.joint import split_joint_logits, unpack_joint_paths
+from ctc_tpu_torch.train.metrics import (
+    AverageMeter,
+    topk_accuracy,
+    transition_accuracy,
+    transition_recall,
+)
 from ctc_tpu_torch.train.schedule import step_decay_schedule
 
 
@@ -68,6 +75,32 @@ def _model_input(feats):
     return feats.transpose(0, 1)
 
 
+def _head_logits(logits_last, batch, loss_kind):
+    """Final-step logits in the metric and CE class space: the verb slice
+    of the joint (o, v) head (``future_target`` is the future verb), the
+    whole head otherwise."""
+    if loss_kind == "joint":
+        return split_joint_logits(logits_last, batch["paths"])[0]
+    return logits_last
+
+
+def _multi_hot_paths(logits, batch, loss_kind):
+    """``(scores [T, B, C], multi-hot paths [B, L, C], path lengths [B])``
+    for the transition metrics: an integer path becomes the one-hot of
+    ``path mod C``; the joint head gives its verb slice and verb path."""
+    paths, lengths = batch["paths"], batch["target_lengths"]
+    if loss_kind == "joint":
+        logits, _ = split_joint_logits(logits, paths)
+        paths, _ = unpack_joint_paths(paths)
+        lengths = lengths[:, 0]
+    if paths.dim() == 2:
+        classes = logits.shape[2]
+        paths = torch.nn.functional.one_hot(
+            torch.remainder(paths.long(), classes), classes
+        ).to(torch.float32)
+    return logits, paths, lengths
+
+
 def make_train_step(loss_kind: str = "noblank", implementation=None,
                     ce_weight: float = 0.0, schedule=None, loss_fn=None):
     """Build the train step ``(state, batch, generator) -> (state,
@@ -93,7 +126,8 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
                        implementation=implementation)
         if ce_weight:
             loss = loss + ce_weight * losses.cross_entropy(
-                logits[-1], batch["future_target"]
+                _head_logits(logits[-1], batch, loss_kind),
+                batch["future_target"],
             )
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -104,7 +138,8 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
         state.step += 1
         with torch.no_grad():
             (top1, top5), _ = topk_accuracy(
-                logits[-1], batch["future_target"], topk=(1, 5)
+                _head_logits(logits[-1], batch, loss_kind),
+                batch["future_target"], topk=(1, 5)
             )
         return state, {"loss": loss.detach(), "top1": top1, "top5": top5}
 
@@ -112,10 +147,15 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
 
 
 def make_eval_step(loss_kind: str = "noblank", implementation=None,
-                   loss_fn=None):
+                   loss_fn=None, transition_metrics: bool = False):
     """Build the eval step ``(state, batch) -> metrics`` (running BatchNorm
     statistics, no dropout, no gradient); ``loss_fn`` as in
-    :func:`make_train_step`."""
+    :func:`make_train_step`.
+
+    ``transition_metrics=True`` adds the DTW transition metrics on the
+    label paths over the whole logit sequence, batch means of the
+    per-sample :func:`transition_accuracy` and :func:`transition_recall`:
+    ``trans_top1/5`` and ``recall_top1/5``."""
     loss_fn = loss_fn or losses.LOSS_FNS[loss_kind]
 
     @torch.no_grad()
@@ -124,10 +164,19 @@ def make_eval_step(loss_kind: str = "noblank", implementation=None,
         loss = loss_fn(logits, batch["paths"], batch["input_lengths"],
                        batch["target_lengths"],
                        implementation=implementation)
+        extra = {}
+        if transition_metrics:
+            out, paths, lengths = _multi_hot_paths(logits, batch, loss_kind)
+            out = out.transpose(0, 1)  # [B, T, C]
+            (t1, t5), _ = transition_accuracy(out, paths, lengths)
+            (r1, r5), _ = transition_recall(out, paths, lengths)
+            extra = {"trans_top1": t1.mean(), "trans_top5": t5.mean(),
+                     "recall_top1": r1.mean(), "recall_top5": r5.mean()}
         (top1, top5), _ = topk_accuracy(
-            logits[-1], batch["future_target"], topk=(1, 5)
+            _head_logits(logits[-1], batch, loss_kind),
+            batch["future_target"], topk=(1, 5)
         )
-        return {"loss": loss, "top1": top1, "top5": top5}
+        return {"loss": loss, "top1": top1, "top5": top5, **extra}
 
     return eval_step
 
@@ -142,6 +191,9 @@ class Trainer:
     on the trainer's device (:func:`ctc_tpu_torch.parallel.make_seq_mesh`)
     and trains and evaluates through the sequence-sharded loss, with the
     batch split into ``seq_microbatches`` (default ``seq_parallel``).
+
+    ``transition_metrics`` adds the eval step's DTW transition metrics;
+    ``joint_object_weight`` scales the joint loss's object term.
     """
 
     def __init__(
@@ -164,6 +216,8 @@ class Trainer:
         device="cuda",
         seq_parallel: int = 0,
         seq_microbatches: int = 0,
+        transition_metrics: bool = False,
+        joint_object_weight: float = 1.0,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -173,7 +227,10 @@ class Trainer:
         effective_steps = max(int(steps_per_epoch * min(train_size, 1.0)), 1)
         self.schedule = step_decay_schedule(lr, lr_decay_epochs,
                                             effective_steps)
-        seq_loss_fn = None
+        loss_fn = None
+        if loss_kind == "joint" and joint_object_weight != 1.0:
+            loss_fn = partial(losses.joint_ov_ctc_loss,
+                              object_weight=joint_object_weight)
         if seq_parallel > 1:
             if loss_kind not in ("noblank", "binary", "blank"):
                 raise ValueError(
@@ -184,15 +241,16 @@ class Trainer:
                 make_seq_sharded_loss,
             )
 
-            seq_loss_fn = make_seq_sharded_loss(
+            loss_fn = make_seq_sharded_loss(
                 make_seq_mesh(seq_parallel, self.device), loss_kind,
                 num_microbatches=(seq_microbatches or None),
             )
         self.train_step = make_train_step(loss_kind, implementation,
                                           ce_weight, self.schedule,
-                                          loss_fn=seq_loss_fn)
+                                          loss_fn=loss_fn)
         self.eval_step = make_eval_step(loss_kind, implementation,
-                                        loss_fn=seq_loss_fn)
+                                        loss_fn=loss_fn,
+                                        transition_metrics=transition_metrics)
         self.cache_dir = cache_dir
         self.print_freq = print_freq
         self.print_test_freq = (print_freq if print_test_freq is None
@@ -283,9 +341,17 @@ class Trainer:
         return {k: m.avg for k, m in meters.items()}
 
     def fit(self, train_loader, val_loader, *, epochs: int,
-            state: TrainState | None = None, start_epoch: int = 0):
-        """Epoch loop with per-epoch CSV score rows and checkpoints (the
-        best validation top-1 is also copied)."""
+            state: TrainState | None = None, start_epoch: int = 0,
+            video_eval=None):
+        """Epoch loop with per-epoch CSV score rows and checkpoints; the
+        checkpoint with the best score is also copied.
+
+        ``video_eval``: an optional per-epoch video-level evaluation
+        ``state -> {"mAP": ..., ...}`` (a closure over
+        :func:`ctc_tpu_torch.eval.video.evaluate_videos`).  Given one, each
+        epoch's mAP goes into the val metrics and the score log's sixth
+        column, and is the checkpoint's score; without it the score is the
+        validation top-1."""
         from ctc_tpu_torch.train import checkpoints as ckpt
 
         if state is None:
@@ -298,15 +364,18 @@ class Trainer:
                 state, train_metrics = self.train_epoch(state, train_loader,
                                                         epoch)
                 val_metrics = self.validate(state, val_loader, epoch)
+                if video_eval is not None:
+                    val_metrics["mAP"] = float(video_eval(state)["mAP"])
                 history.append({"train": train_metrics, "val": val_metrics})
                 if score_log:
-                    score_log[1].writerow(
-                        [epoch, train_metrics["loss"], val_metrics["loss"],
-                         val_metrics["top1"], val_metrics["top5"]]
-                    )
+                    row = [epoch, train_metrics["loss"], val_metrics["loss"],
+                           val_metrics["top1"], val_metrics["top5"]]
+                    if "mAP" in val_metrics:
+                        row.append(val_metrics["mAP"])
+                    score_log[1].writerow(row)
                     score_log[0].flush()
                 if self.cache_dir:
-                    score = val_metrics["top1"]
+                    score = val_metrics.get("mAP", val_metrics["top1"])
                     is_best = score > best
                     best = max(best, score)
                     ckpt.save(self.cache_dir, state, epoch, score=score,

@@ -2,7 +2,8 @@
 files with the same columns as ctc_tpu's, resumes and evaluates, trains the
 blank loss and decodes from its checkpoint, draws the same synthetic batches
 as ctc_tpu's loader, refuses CUDA without a card, and refuses every flag
-whose code is not ported."""
+whose code is not ported; ``--evaluate`` prints the video mAP, reads
+``--groundtruth-lookup`` and writes the ``--my-dataset`` predictions."""
 
 import csv
 
@@ -16,6 +17,7 @@ from ctc_tpu.data.loaders import synthetic as jax_synthetic
 from ctc_tpu_torch import config
 from ctc_tpu_torch.cli.main import main
 from ctc_tpu_torch.data.loaders import synthetic
+from ctc_tpu_torch.models import LSTMHead
 
 TINY = ["--dataset", "synthetic", "--extract-feat-dim", "16",
         "--batch-size", "4", "--temporal", "4", "--print-train-freq", "1",
@@ -56,7 +58,9 @@ def test_resume_and_evaluate(tmp_path, capsys):
     metrics = main(TINY + ["--evaluate", "--device", "cpu",
                            "--cache-dir", cache,
                            "--resume", str(tmp_path / "run" / "test")])
-    assert set(metrics) == {"loss", "top1", "top5"}
+    # the synthetic loader's val_video split adds the video mAP, as in
+    # ctc_tpu
+    assert set(metrics) == {"loss", "top1", "top5", "video_mAP"}
 
 
 def test_blank_loss_trains_and_decodes(tmp_path):
@@ -122,9 +126,6 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
         (["--grad-norm-freq", "2"], "item 14"),
         (["--max-restarts", "1"], "item 14"),
         (["--compute-dtype", "bf16"], "item 16"),
-        (["--loss", "joint"], "item 8"),
-        (["--video-eval"], "item 10"),
-        (["--transition-metrics"], "item 10"),
         (["--dataset", "charades_pixels"], "item 12"),
         pytest.param(["--dataset", "charades_ctc_next_pred"], "item 12",
                      id="charades-without-features-dir-item 12"),
@@ -136,3 +137,153 @@ def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         main(TINY + ["--epochs", "1", "--device", "cpu",
                      "--cache-dir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize(
+    "flags,keys",
+    [
+        (["--video-eval"], {"mAP"}),
+        (["--transition-metrics"], {"trans_top1", "trans_top5",
+                                    "recall_top1", "recall_top5"}),
+        (["--loss", "joint"], set()),
+        (["--loss", "joint", "--joint-object-weight", "2"], set()),
+    ],
+    ids=["video-eval", "transition-metrics", "joint", "joint-object-weight"],
+)
+def test_evaluation_and_joint_flags_train(tmp_path, flags, keys):
+    """The flags of ROADMAP items 8 and 10 train on the CPU; each adds its
+    keys to the val metrics."""
+    history = main(TINY + ["--epochs", "1", "--device", "cpu",
+                           "--cache-dir", str(tmp_path)] + flags)
+    assert len(history) == 1
+    assert {"loss", "top1", "top5"} | keys == set(history[0]["val"])
+    assert np.isfinite(history[0]["train"]["loss"])
+
+
+def test_video_eval_scores_like_jax(tmp_path):
+    """--video-eval --transition-metrics: the same CSV files and columns
+    as ctc_tpu's run (score.csv gains the mAP column), each epoch's mAP
+    is its checkpoint's score, and --evaluate from that checkpoint prints
+    the same video mAP."""
+    flags = ["--epochs", "2", "--video-eval", "--transition-metrics"]
+    jax_history = jax_main(TINY + flags + ["--lattice-impl", "xla",
+                                           "--cache-dir",
+                                           str(tmp_path / "jax")])
+    history = main(TINY + flags + ["--device", "cpu",
+                                   "--cache-dir", str(tmp_path / "torch")])
+    run = tmp_path / "torch" / "test"
+    assert (_csv_shapes(run) == _csv_shapes(tmp_path / "jax" / "test")
+            == {"score.csv": {6}, "test_log.csv": {5}, "train_log.csv": {5}})
+    assert set(history[0]["val"]) == set(jax_history[0]["val"])
+    rows = list(csv.reader(open(run / "score.csv", newline="")))
+    maps = [h["val"]["mAP"] for h in history]
+    assert [float(r[5]) for r in rows] == maps
+    assert sorted(p.name for p in run.glob("model_*.txt")) == [
+        f"model_{e:03d}_{m:.4f}.txt" for e, m in enumerate(maps)]
+    metrics = main(TINY + ["--evaluate", "--device", "cpu", "--cache-dir",
+                           str(tmp_path / "torch"), "--resume", str(run)])
+    assert metrics["video_mAP"] == pytest.approx(maps[-1], rel=0, abs=1e-12)
+
+
+def _evaluate(tmp_path, capsys, extra):
+    """Train one epoch, then --evaluate from its checkpoint with
+    ``extra``; returns ``(metrics, stdout of the evaluation)``."""
+    cache = str(tmp_path / "run")
+    base = TINY + ["--device", "cpu", "--cache-dir", cache]
+    main(base + ["--epochs", "1"])
+    capsys.readouterr()
+    metrics = main(base + ["--evaluate", "--resume",
+                           str(tmp_path / "run" / "test")] + extra)
+    return metrics, capsys.readouterr().out
+
+
+def test_evaluate_prints_the_video_map(tmp_path, capsys):
+    metrics, out = _evaluate(tmp_path, capsys, [])
+    assert f"video mAP: {metrics['video_mAP']:.4f}" in out
+    assert "not ported" not in out and "skipped" not in out
+    assert np.isfinite(metrics["video_mAP"])
+
+
+def test_evaluate_reads_the_groundtruth_lookup(tmp_path, capsys):
+    """A --groundtruth-lookup pickle overrides the rebuilt table: the
+    rebuilt table gives the rebuilt mAP, a table with other verbs another
+    one, each equal to evaluate_videos against that table."""
+    from ctc_tpu_torch.eval.video import evaluate_videos
+    from ctc_tpu_torch.utils.groundtruth import save_groundtruth
+
+    cfg = config.parse(TINY + ["--cache-dir", str(tmp_path)])
+    data, table = synthetic.get_val_video(cfg)
+    shifted = {vid: [[s, o, (v + 1) % cfg.v_class] for s, o, v in rows]
+               for vid, rows in table.items()}
+    rebuilt, out = _evaluate(tmp_path, capsys, [])
+    for name, gt in (("same.p", table), ("shifted.p", shifted)):
+        path = str(tmp_path / name)
+        save_groundtruth(path, gt)
+        metrics, out = _evaluate(tmp_path, capsys,
+                                 ["--groundtruth-lookup", path])
+        assert f"groundtruth lookup: {path} ({len(table)} videos)" in out
+        model = LSTMHead(cfg.extract_feat_dim, cfg.head_classes)
+        from ctc_tpu_torch.train import checkpoints
+        from ctc_tpu_torch.train.trainer import TrainState, torch_style_adam
+
+        state = TrainState(model, torch_style_adam(model.parameters()))
+        checkpoints.load(str(tmp_path / "run" / "test"), state)
+        want = evaluate_videos(model, data, gt, num_verbs=cfg.v_class)
+        assert metrics["video_mAP"] == want["mAP"]
+        if name == "same.p":
+            assert metrics["video_mAP"] == rebuilt["video_mAP"]
+        else:
+            assert metrics["video_mAP"] != rebuilt["video_mAP"]
+
+
+def test_evaluate_warns_about_a_missing_lookup(tmp_path, capsys):
+    rebuilt, _ = _evaluate(tmp_path, capsys, [])
+    missing = str(tmp_path / "nowhere.p")
+    metrics, out = _evaluate(tmp_path, capsys,
+                             ["--groundtruth-lookup", missing])
+    assert (f"WARNING: --groundtruth-lookup {missing} not found; using the "
+            "rebuilt gt table") in out
+    assert "groundtruth lookup:" not in out
+    assert metrics["video_mAP"] == rebuilt["video_mAP"]
+
+
+def test_evaluate_writes_own_video_predictions(tmp_path, capsys,
+                                               monkeypatch):
+    """--my-dataset names a loader whose ``get`` gives dense windows with
+    features: one CSV row of top-5 classes per window."""
+    import sys
+    import types
+
+    from ctc_tpu_torch.data.synthetic import synthetic_val_video
+
+    data, _ = synthetic_val_video(num_videos=3, windows_per_video=4,
+                                  temporal=4, feat_dim=16)
+    fake = types.ModuleType("ctc_tpu_torch.data.loaders.own_windows")
+    fake.get = lambda cfg: (data, None)
+    monkeypatch.setitem(sys.modules, fake.__name__, fake)
+    _, out = _evaluate(tmp_path, capsys, ["--my-dataset", "own_windows"])
+    path = tmp_path / "run" / "test" / "myvideo_predictions.csv"
+    assert f"own-video predictions: 12 windows -> {path}" in out
+    rows = list(csv.reader(open(path, newline="")))
+    assert rows[0] == ["id", "window", "top1", "top2", "top3", "top4",
+                       "top5"]
+    assert [r[:2] for r in rows[1:]] == [
+        [f"SYN{v:03d}", str(w)] for v in range(3) for w in range(4)]
+    assert all(0 <= int(c) < 33 for r in rows[1:] for c in r[2:])
+
+
+def test_evaluate_own_video_with_frames_names_item_12(tmp_path, capsys):
+    """The own-video loaders extract features from frames on disk (item
+    12): ctc_tpu's message reports it and the evaluation goes on."""
+    frames = tmp_path / "my" / "YUME0"
+    frames.mkdir(parents=True)
+    for j in range(600):
+        open(frames / f"YUME0-{j + 1:06d}.jpg", "wb").close()
+    # the own-video windows at the preset's geometry
+    metrics, out = _evaluate(tmp_path, capsys,
+                             ["--rgb-my-data", str(tmp_path / "my"),
+                              "--temporal", "10", "--gap", "2",
+                              "--num-trans", "2"])
+    assert "own-video eval skipped:" in out and "item 12" in out
+    assert np.isfinite(metrics["video_mAP"])
+    assert not (tmp_path / "run" / "test" / "myvideo_predictions.csv").exists()

@@ -296,13 +296,14 @@ def _adam_rms(jstate) -> dict:
             if name not in BN_STATS}
 
 
-def _assert_steps_close(model, jstate, k, mean_shift, lr, near_eps):
+def _assert_steps_close(model, jstate, k, mean_shift, lr, near_eps,
+                        near=NEAR_EPS * ADAM_EPS):
     """test_torch_trainer.py's parameter check, except on the elements
-    whose Adam input has had an RMS within NEAR_EPS Adam eps at a step so
-    far (``near_eps``, updated here): there Adam's step u / (|u| + eps)
-    turns on a sum of cancelling f32 terms, so rounding moves it by a share
-    of lr either way, as for the zero-gradient proj.bias, and the moved
-    weight keeps it.  Those are held within 2 lr a step; every other
+    whose Adam input has had an RMS within ``near`` (NEAR_EPS Adam eps) at
+    a step so far (``near_eps``, updated here): there Adam's step u / (|u|
+    + eps) turns on a sum of cancelling f32 terms, so rounding moves it by
+    a share of lr either way, as for the zero-gradient proj.bias, and the
+    moved weight keeps it.  Those are held within 2 lr a step; every other
     element at PARAM_ATOL."""
     want = lstm_head_from_jax(_np_tree(jstate.params),
                               _np_tree(jstate.batch_stats))
@@ -311,8 +312,7 @@ def _assert_steps_close(model, jstate, k, mean_shift, lr, near_eps):
         got["feature_head.bn.running_mean"] - mean_shift)
     rms = _adam_rms(jstate)
     for name, r in rms.items():
-        near_eps[name] = near_eps.get(name, False) | (
-            r <= NEAR_EPS * ADAM_EPS)
+        near_eps[name] = near_eps.get(name, False) | (r <= near)
     for name, w in want.items():
         dev = (got[name] - w).abs()
         if name in ZERO_GRAD_PARAMS:

@@ -112,9 +112,3 @@ def test_final_step_losses_match(rng, kind):
     v_t.backward()
     np.testing.assert_allclose(float(v_t.detach()), float(v_j), **VAL_TOL)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), **VAL_TOL)
-
-
-@pytest.mark.parametrize("kind,item", [("joint", "item 8")])
-def test_unported_losses_raise(kind, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tlosses.LOSS_FNS[kind](torch.zeros(2, 2, 3), None, None, None)
