@@ -12,8 +12,13 @@ binary and c_class blank variants, on cached features; the data layer
 timed), evaluates on the same corpus (per-epoch video mAP and transition
 metrics, ``--evaluate`` with and without a groundtruth lookup, the ver2
 object mAP, the joint (object, verb) head with its relation tagging and
-decode; the eval held to the CPU's), checks that each run went through
-its kernels, and times each
+decode; the eval held to the CPU's), runs the one-card trainer features
+(K steps as one CUDA graph held to the same steps run eagerly, the CLI with
+--steps-per-dispatch, --accum-grad, --skip-nonfinite, --grad-norm-freq and
+--profile-dir, a restart after a crash, the Charades default run in groups
+of 4), checks that each run went through its kernels, profiles each train
+step eagerly and as a graph and host batches fed plainly and through
+``device_prefetch``, and times each
 kernel beside its plain version, its bound and, where one exists, the
 PyTorch call that computes the same function.  Then the same
 for the ten forward-lattice probe kernels at three shapes (the last at the
@@ -1227,6 +1232,398 @@ def phase_eval(work, card, paths, samples):
     return all_launches
 
 
+# the trainer_features phase and the profile's graph rows: K steps as one
+# CUDA graph (ctc_tpu_torch.train.graphs), held to the same steps run
+# eagerly at ctc_tpu's own tolerance for its K-step scan
+# (tests/test_trainer.py::test_steps_per_dispatch_matches_single_steps)
+GRAPH_K = 8
+GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
+# ...except feature_head.proj.bias and the BatchNorm running mean that
+# carries it, at 2 lr an update: the bias's gradient is rounding noise
+# (STEP_ZERO_GRAD_PARAMS), and the blank loss's emission gather adds the
+# repeated blank slot's gradients by atomics, in no fixed order, so the
+# noise, which Adam scales to steps of up to lr, differs from run to run
+GRAPH_NOISE_CARRIERS = ("feature_head.proj.bias",
+                        "feature_head.bn.running_mean")
+GRAPH_LR = 1e-3  # the schedule's base rate in the graph cases
+# a path whose eager steps do not repeat bit for bit is held to this many
+# times their own run-to-run max |dev|: two eager runs of blank at seq 4
+# differed by 3.6e-6 and 1.7e-5 in two smokes on an H100, the graph by
+# 9.5e-6 and 1.6e-5; a graph that reused dropout masks or misread a count
+# would move the parameters by ~1e-3
+GRAPH_NOISE_FACTOR = 10
+FEATURE_K = 4  # --steps-per-dispatch of the phase's CLI and Charades runs
+FEATURE_FLAGS = ["--steps-per-dispatch", str(FEATURE_K), "--accum-grad", "2",
+                 "--skip-nonfinite", "--grad-norm-freq", "2"]
+# (label, loss, head, (T, B, L), seq microbatches, optimizer chain flags,
+# batch indices given a NaN feature): each graph against eager case
+GRAPH_CASES = (
+    ("noblank", "noblank", 33, MAIN_SHAPE, None, {}, ()),
+    ("blank", "blank", BLANK_CLASSES, BLANK_MAIN_SHAPE, None, {}, ()),
+    ("noblank_seq4", "noblank", 33, SEQ_MAIN["noblank"][:3],
+     SEQ_MAIN["noblank"][3], {}, ()),
+    ("blank_seq4", "blank", BLANK_CLASSES, SEQ_MAIN["blank"][:3],
+     SEQ_MAIN["blank"][3], {}, ()),
+    ("skip_nonfinite", "noblank", 33, MAIN_SHAPE, None,
+     {"skip_nonfinite": True}, (GRAPH_K + 3,)),
+    ("accum_grad_2", "noblank", 33, MAIN_SHAPE, None,
+     {"accum_grad": 2, "grad_norm_freq": 2}, ()),
+)
+PROFILE_WINDOWS = 5  # timed (and profiled) windows per mode, in turns
+PROFILE_STEPS = GRAPH_K  # train steps a window: one graph replay
+_LATTICE_NAME = None
+
+
+def lattice_key(name: str):
+    """The launch-count key (``noblank_lattice_forward``, ...) of a
+    profiler kernel name, or None for a kernel outside the lattice."""
+    import re
+
+    global _LATTICE_NAME
+    if _LATTICE_NAME is None:
+        _LATTICE_NAME = re.compile(
+            r"(?<![a-z])(noblank|blank)_(shard_)?(forward|backward)_kernel")
+    m = _LATTICE_NAME.search(name)
+    if m is None:
+        return None
+    return f"{m[1]}_{'shard' if m[2] else 'lattice'}_{m[3]}"
+
+
+def profiled_launches(prof) -> dict:
+    """Lattice kernel launches by key, from a profile's device events (a
+    graph replay's kernels included)."""
+    counts = expect_counts()
+    for e in device_kernels(prof):
+        key = lattice_key(e.key)
+        if key:
+            counts[key] += e.count
+    return counts
+
+
+def traced_launches(path) -> dict:
+    """Lattice kernel launches by key in a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = expect_counts()
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = lattice_key(e.get("name", ""))
+            if key:
+                counts[key] += 1
+    return counts
+
+
+def graph_state(loss, classes, microbatches, chain, *, dropout=0.3,
+                schedule=None):
+    """A full-width model, optimizer, train step and dropout generator on
+    the card from fixed seeds."""
+    import torch
+
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train.schedule import step_decay_schedule
+    from ctc_tpu_torch.train.trainer import (
+        TrainState, make_train_step, torch_style_adam,
+    )
+
+    model = LSTMHead(1024, classes, dropout_rate=dropout)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to("cuda")
+    state = TrainState(model, torch_style_adam(model.parameters(), 1e-4,
+                                               **chain))
+    loss_fn = None
+    if microbatches:
+        from ctc_tpu_torch.parallel import (
+            make_seq_mesh, make_seq_sharded_loss,
+        )
+
+        loss_fn = make_seq_sharded_loss(make_seq_mesh(SEQ_SHARDS, "cuda"),
+                                        loss, num_microbatches=microbatches)
+    # the learning rate falls tenfold every 4 updates: read on the card
+    # from the optimizer's count
+    step = make_train_step(loss, None, 0.0,
+                           schedule or step_decay_schedule(GRAPH_LR, 1, 4),
+                           loss_fn=loss_fn)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return state, step, gen
+
+
+def state_parts(state, rows) -> dict:
+    """A train state and its per-step metrics as flat float64 tensors by
+    part: metrics, parameters, the two noise carriers, BatchNorm
+    statistics, Adam's moments."""
+    import torch
+
+    parts = {"metrics": [torch.tensor([list(r.values()) for r in rows])]}
+    for name, t in state.model.state_dict().items():
+        part = (name if name in GRAPH_NOISE_CARRIERS else
+                "bn_stats" if "running" in name else "params")
+        parts.setdefault(part, []).append(t)
+    opt = state.optimizer
+    parts["adam_moments"] = opt.exp_avg + opt.exp_avg_sq
+    return {k: torch.cat([t.detach().double().cpu().flatten() for t in v])
+            for k, v in parts.items()}
+
+
+def graph_vs_eager(label, loss, classes, shape, microbatches, chain, nan_at):
+    """Two groups of GRAPH_K full-width batches through one MultiStep (the
+    first run eagerly as the capture's warm-up, the second one replay)
+    against the same batches as eager steps, from the same weights and
+    generator, dropout 0.3, and the eager steps once more; the replay's
+    lattice launches from the profiler.  Each part is held to GRAPH_RTOL
+    / GRAPH_ATOL (the noise carriers to 2 lr an update); where the eager
+    steps themselves do not repeat (blank: the emission gather's backward
+    adds the repeated blank slot's gradients by atomics, in no fixed
+    order), to GRAPH_NOISE_FACTOR times their own run-to-run max |dev|.
+    Returns the case's row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_tpu_torch.data import synthetic_feature_batches
+    from ctc_tpu_torch.train.graphs import MultiStep, host_rows
+    from ctc_tpu_torch.train.trainer import to_device
+
+    T, B, L = shape
+    bs = synthetic_feature_batches(num_batches=2 * GRAPH_K, batch_size=B,
+                                   temporal=T, feat_dim=1024,
+                                   num_classes=classes, max_path=L, seed=21)
+    for i in nan_at:
+        bs[i]["feats"] = bs[i]["feats"].copy()
+        bs[i]["feats"][0, 0, 0] = np.nan
+    out = {}
+    for mode in ("graph", "eager", "eager_again"):
+        state, step, gen = graph_state(loss, classes, microbatches, chain)
+        rows = []
+        if mode == "graph":
+            multi = MultiStep(step, GRAPH_K, train=True, device="cuda",
+                              generator=gen)
+            rows += host_rows(multi(state, bs[:GRAPH_K]))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rows += host_rows(multi(state, bs[GRAPH_K:]))
+                torch.cuda.synchronize()
+            replay = profiled_launches(prof)
+        else:
+            for b in bs:
+                state, m = step(state, to_device(b, "cuda"), gen)
+                rows += host_rows({k: v[None] for k, v in m.items()})
+        torch.cuda.synchronize()
+        counts = {"step": int(state.step),
+                  "count": int(state.optimizer.count),
+                  "skipped": int(state.optimizer.skipped)}
+        out[mode] = (state_parts(state, rows), counts, list(rows[0]))
+    (pg, cg, kg), (pe, ce, ke), (pa, ca, _) = (out["graph"], out["eager"],
+                                               out["eager_again"])
+    if kg != ke or not cg == ce == ca:
+        fail(f"trainer_features graph {label}: metric keys {kg} / {ke}, "
+             f"counts {cg} / {ce} / {ca}")
+    devs, noise = {}, {}
+    for part, want in pe.items():
+        rtol, atol = ((0.0, 2 * GRAPH_LR * ce["count"])
+                      if part in GRAPH_NOISE_CARRIERS
+                      else (GRAPH_RTOL, GRAPH_ATOL))
+        finite = torch.isfinite(want)
+        devs[part] = max_dev(pg[part][finite], want[finite])
+        noise[part] = max_dev(pa[part][finite], want[finite])
+        if torch.allclose(pg[part], want, rtol=rtol, atol=atol,
+                          equal_nan=True):
+            continue
+        if torch.allclose(pa[part], want, rtol=rtol, atol=atol,
+                          equal_nan=True) or (
+                devs[part] > GRAPH_NOISE_FACTOR * noise[part]):
+            fail(f"trainer_features graph {label}: {part} max |dev| "
+                 f"{devs[part]} from eager (eager run to run "
+                 f"{noise[part]})")
+    per_step = 1 if microbatches is None else SEQ_SHARDS * microbatches
+    want = expect_counts(**{(f"{loss}_shard" if microbatches else loss): (
+        GRAPH_K * per_step, GRAPH_K * per_step)})
+    if replay != want:
+        fail(f"trainer_features graph {label}: the replay launched "
+             f"{replay}, expected {want}")
+    return {"case": label, "loss": loss, "head": classes,
+            "shape_TBL": list(shape), "seq_microbatches": microbatches,
+            "chain": chain, "nan_batches": list(nan_at), "k": GRAPH_K,
+            "groups": 2, "dropout": 0.3, "counts": cg,
+            "replay_lattice_launches": {k: v for k, v in replay.items()
+                                        if v},
+            "max_abs_dev": devs, "eager_run_to_run_max_abs_dev": noise}
+
+
+class _FlakyLoader:
+    """Batches that raise after ``after`` of them when iterated for epoch
+    ``fail_epoch``."""
+
+    def __init__(self, batches, fail_epoch, after):
+        self.batches, self.fail_epoch, self.after = batches, fail_epoch, after
+        self.iterations = 0
+
+    def __iter__(self):
+        epoch = self.iterations
+        self.iterations += 1
+        for i, b in enumerate(self.batches):
+            if epoch == self.fail_epoch and i == self.after:
+                raise RuntimeError("injected data failure")
+            yield b
+
+
+def fit_restarts(work):
+    """Trainer.fit(max_restarts=1) at full width with K-step graphs, over a
+    loader that raises in epoch 2 after one replayed group: the run
+    restores epoch 1's checkpoint in place, replays on, and ends equal to
+    a run that never failed (dropout off)."""
+    import torch
+
+    from ctc_tpu_torch.data import synthetic_feature_batches
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train import Trainer
+
+    T, B, _ = MAIN_SHAPE
+    bs = synthetic_feature_batches(num_batches=8, batch_size=B, temporal=T,
+                                   feat_dim=1024, num_classes=33, seed=5)
+    val = synthetic_feature_batches(num_batches=2, batch_size=B, temporal=T,
+                                    feat_dim=1024, num_classes=33, seed=6)
+    runs = {}
+    for label, loader in (("flaky", _FlakyLoader(bs, 2, FEATURE_K)),
+                          ("clean", bs)):
+        tr = Trainer(LSTMHead(1024, 33, dropout_rate=0.0), lr=1e-3,
+                     steps_per_epoch=8, print_freq=1000, device="cuda",
+                     steps_per_dispatch=FEATURE_K,
+                     cache_dir=os.path.join(work, f"restarts_{label}"))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state, history = tr.fit(loader, val, epochs=4, max_restarts=1)
+        torch.cuda.synchronize()
+        runs[label] = (state, history, out.getvalue(),
+                       time.perf_counter() - t0,
+                       len(tr.multi_step._captured))
+    (sf, hf, of, secs, captures), (sc, hc, _, _, _) = (runs["flaky"],
+                                                       runs["clean"])
+    line = ("epoch 2 failed (RuntimeError: injected data failure); "
+            "restored epoch 1, restart 1")
+    if (len(hf) != 4 or line not in of
+            or (int(sf.step), int(sc.step)) != (32, 32)):
+        fail(f"trainer_features fit_restarts: {len(hf)} epochs, step "
+             f"{int(sf.step)}, printed {of!r}")
+    devs = {}
+    for (name, a), b in zip(sf.model.state_dict().items(),
+                            sc.model.state_dict().values()):
+        rtol, atol = ((0.0, 2 * 1e-3 * int(sc.optimizer.count))
+                      if name in GRAPH_NOISE_CARRIERS
+                      else (GRAPH_RTOL, GRAPH_ATOL))
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            fail(f"trainer_features fit_restarts: {name} max |dev| "
+                 f"{max_dev(a, b)} from the run that never failed")
+        devs[name] = max_dev(a, b)
+    return {"epochs": len(hf), "restart_line": line, "seconds": secs,
+            "captures": captures,
+            "train_loss_by_epoch": [h["train"]["loss"] for h in hf],
+            "max_abs_dev_vs_clean_run": devs}
+
+
+def phase_trainer_features(work, card, paths):
+    """The one-card trainer features on the card at full width: K=8 steps
+    as one CUDA graph against K eager steps (noblank, blank, both at
+    --seq-parallel 4, with a NaN batch under --skip-nonfinite, and with
+    --accum-grad 2); the CLI's synthetic run with --steps-per-dispatch 4
+    --accum-grad 2 --skip-nonfinite --grad-norm-freq 2 --profile-dir (its
+    trace holds the lattice kernels of each of epoch 0's batches);
+    Trainer.fit(max_restarts=1) over a loader that raises; the reference's
+    default Charades run with --steps-per-dispatch 4 against its K=1 run."""
+    import torch
+
+    from ctc_tpu_torch.cli import exe
+    from ctc_tpu_torch.cli.main import main
+
+    for case in GRAPH_CASES:
+        t0 = time.perf_counter()
+        row = graph_vs_eager(*case)
+        emit({"phase": "trainer_features", "run": "graph_vs_eager", **row,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": card})
+
+    cache = os.path.join(work, "features")
+    trace_dir = os.path.join(work, "features_trace")
+    argv = MAIN_ARGS + FEATURE_FLAGS + ["--profile-dir", trace_dir,
+                                        "--cache-dir", cache]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        history = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = read_counts()
+    losses = [h["train"]["loss"] for h in history]
+    if not (all(x == x and abs(x) < float("inf") for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"trainer_features cli: training losses {losses}")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        fail(f"trainer_features cli: trace files {traces}")
+    traced = traced_launches(os.path.join(trace_dir, traces[0]))
+    train_batches = 8  # the synthetic loader's, epoch 0 (the traced one)
+    if traced != expect_counts(noblank=(train_batches, train_batches)):
+        fail(f"trainer_features cli: the trace holds {traced}, expected "
+             f"{train_batches} of each")
+    norms = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("step ") and ": global grad norm " in ln]
+    # accumulation over 2 of 16 batches: 8 updates; the count before
+    # each batch is even at 8 of them
+    if [int(ln.split()[1][:-1]) for ln in norms] != [0, 0, 2, 2, 4, 4, 6, 6]:
+        fail(f"trainer_features cli: grad-norm lines {norms}")
+    # the Python counters tick at the warm-up group's launches and at the
+    # capture (4 + 4 a pass), and at the eager val steps (2 a epoch)
+    if counted != expect_counts(noblank=(2 * FEATURE_K + 4, 2 * FEATURE_K)):
+        fail(f"trainer_features cli: counters {counted}")
+    emit({"phase": "trainer_features", "run": "cli", "argv": argv,
+          "seconds": seconds, "train_loss_by_epoch": losses,
+          "val_loss_by_epoch": [h["val"]["loss"] for h in history],
+          "step_s_host_avg": [h["train"]["time"] for h in history],
+          "trace_file": traces[0], "traced_lattice_launches_epoch0": {
+              k: v for k, v in traced.items() if v},
+          "python_counters": {k: v for k, v in counted.items() if v},
+          "grad_norm_lines": norms, "nvidia_smi": card})
+
+    emit({"phase": "trainer_features", "run": "fit_restarts",
+          **fit_restarts(work), "nvidia_smi": card})
+
+    runs = {}
+    for k in (FEATURE_K, 1):
+        c = os.path.join(work, f"charades_k{k}")
+        ch_argv = paths + ["--cache-dir", c, "--resume",
+                           os.path.join(c, "fresh"), "--epochs",
+                           str(CHARADES_EPOCHS), "--device", "cuda",
+                           "--steps-per-dispatch", str(k)]
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = exe.run(ch_argv)
+        torch.cuda.synchronize()
+        runs[k] = (hist, time.perf_counter() - t0, read_counts(), ch_argv)
+    (hk, secs_k, counted_k, argv_k), (h1, secs_1, counted_1, _) = (
+        runs[FEATURE_K], runs[1])
+    cols = ("loss", "top1", "top5")
+    got = [[h[part][c] for part in ("train", "val") for c in cols]
+           for h in hk]
+    want = [[h[part][c] for part in ("train", "val") for c in cols]
+            for h in h1]
+    dev = max(abs(a - b) for ra, rb in zip(got, want)
+              for a, b in zip(ra, rb))
+    import numpy as np
+
+    if len(got) != CHARADES_EPOCHS or not np.allclose(
+            got, want, rtol=GRAPH_RTOL, atol=GRAPH_ATOL):
+        fail(f"trainer_features charades: K={FEATURE_K} {got} vs K=1 {want}")
+    emit({"phase": "trainer_features", "run": "charades_default",
+          "argv": argv_k, "k": FEATURE_K, "by_epoch_k": got,
+          "by_epoch_k1": want, "max_abs_dev": dev,
+          "seconds": {"k": secs_k, "k1": secs_1},
+          "python_counters": {"k": {k: v for k, v in counted_k.items() if v},
+                              "k1": {k: v for k, v in counted_1.items()
+                                     if v}},
+          "nvidia_smi": card})
+
+
 def phase_step_vs_cpu():
     """One train step on the card (kernels) against the same step on the
     CPU (plain lattice), from the same weights and batch, dropout off."""
@@ -1315,7 +1712,9 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
                                         loss, num_microbatches=microbatches)
     step = make_train_step(loss, None, 0.0, lambda k: 1e-3, loss_fn=loss_fn)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    steps = 20 if microbatches else 50
+    # 50 steps at T=10; 20 at T=64, where a profiled step holds ~2000
+    # kernels and ~5000 host ops and reading the profile takes the time
+    steps = 50 if T <= MAIN_SHAPE[0] and not microbatches else 20
     for _ in range(5):
         step(state, batch, gen)
     torch.cuda.synchronize()
@@ -1354,6 +1753,152 @@ def phase_profile(loss="noblank", classes=33, shape=MAIN_SHAPE,
           "top_device_kernels": [
               {"name": e.key[:80], "us_per_step": dev_us(e) / steps,
                "calls_per_step": e.count / steps} for e in top]})
+
+
+def spread(values) -> dict:
+    import statistics
+
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values), "windows": len(values)}
+
+
+def in_turns(modes, steps=PROFILE_STEPS):
+    """Run each mode's ``fn(n)`` (n train steps) PROFILE_WINDOWS times in
+    turns: first timed windows of ``steps`` (host clock to a
+    synchronize), then windows of GRAPH_K steps under a profiler of CUDA
+    activity only (host ops unrecorded, so the profiler's own host cost
+    stays small); returns ``{mode: {step_ms, device_ms_per_step,
+    device_busy_share, kernels_per_step}}``, each the median and spread
+    over the windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = {m: {"step_ms": [], "device_ms_per_step": [],
+                "device_busy_share": [], "kernels_per_step": []}
+            for m in modes}
+    for _ in range(PROFILE_WINDOWS):
+        for mode, fn in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(steps)
+            torch.cuda.synchronize()
+            rows[mode]["step_ms"].append(
+                (time.perf_counter() - t0) / steps * 1e3)
+    for _ in range(PROFILE_WINDOWS):
+        for mode, fn in modes.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(GRAPH_K)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - t0) * 1e3
+            # the profiler's raw device records (kernels and copies), read
+            # without building its event tree, which at T=64 holds ~20000
+            events = [e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation()]
+            device_ms = sum(e.duration_ns() for e in events) / 1e6
+            rows[mode]["device_ms_per_step"].append(device_ms / GRAPH_K)
+            rows[mode]["device_busy_share"].append(device_ms / window_ms)
+            rows[mode]["kernels_per_step"].append(len(events) / GRAPH_K)
+    return {m: {k: spread(v) for k, v in r.items()} for m, r in rows.items()}
+
+
+def phase_profile_graph(card, loss="noblank", classes=33, shape=MAIN_SHAPE,
+                        microbatches=None):
+    """The profile row's step (one device-resident batch, dropout 0.3) as
+    eager steps and as K=8 steps in one CUDA graph, in turns in one
+    process."""
+    from ctc_tpu_torch.data import synthetic_feature_batches
+    from ctc_tpu_torch.train.graphs import MultiStep
+    from ctc_tpu_torch.train.trainer import to_device
+
+    T, B, L = shape
+    batch = to_device(synthetic_feature_batches(
+        num_batches=1, batch_size=B, temporal=T, feat_dim=1024,
+        num_classes=classes, max_path=L, seed=4)[0], "cuda")
+    state, step, gen = graph_state(loss, classes, microbatches, {},
+                                   schedule=lambda k: 1e-3)
+    multi = MultiStep(step, GRAPH_K, train=True, device="cuda",
+                      generator=gen)
+    group = [batch] * GRAPH_K
+
+    def eager(n):
+        for _ in range(n):
+            step(state, batch, gen)
+
+    def graph(n):
+        for _ in range(n // GRAPH_K):
+            multi(state, group)
+
+    t0 = time.perf_counter()
+    eager(5)
+    graph(2 * GRAPH_K)  # the warm-up group and the capture, then a replay
+    turns = in_turns({"eager": eager, "graph": graph})
+    emit({"phase": "profile_graph", "loss": loss, "classes": classes,
+          "shape_TBL": list(shape),
+          "seq_shards": SEQ_SHARDS if microbatches else None,
+          "seq_microbatches": microbatches, "k": GRAPH_K,
+          "steps_per_window": PROFILE_STEPS, **turns,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": card})
+
+
+def phase_prefetch(card, shape=MAIN_SHAPE):
+    """Host batches onto the card, in turns: eager steps on plain
+    ``to_device`` (a pageable copy on the step's stream), eager steps on
+    ``device_prefetch`` (pinned, a side stream, 2 ahead), and K=8 graph
+    steps fed by the trainer's pinned staging; beside them the copy of one
+    batch alone."""
+    import itertools
+
+    import torch
+
+    from ctc_tpu_torch.data import synthetic_feature_batches
+    from ctc_tpu_torch.data.loading import device_prefetch
+    from ctc_tpu_torch.train.graphs import MultiStep
+    from ctc_tpu_torch.train.trainer import to_device
+
+    T, B, L = shape
+    host = synthetic_feature_batches(num_batches=GRAPH_K, batch_size=B,
+                                     temporal=T, feat_dim=1024,
+                                     num_classes=33, max_path=L, seed=7)
+    state, step, gen = graph_state("noblank", 33, None, {},
+                                   schedule=lambda k: 1e-3)
+    multi = MultiStep(step, GRAPH_K, train=True, device="cuda",
+                      generator=gen)
+
+    def plain(n):
+        for b in itertools.islice(itertools.cycle(host), n):
+            step(state, to_device(b, "cuda"), gen)
+
+    def prefetched(n):
+        batches = itertools.islice(itertools.cycle(host), n)
+        for b in device_prefetch(batches, depth=2, device="cuda"):
+            step(state, b, gen)
+
+    def graph(n):
+        for _ in range(n // GRAPH_K):
+            multi(state, host)
+
+    t0 = time.perf_counter()
+    plain(3)
+    prefetched(3)
+    graph(2 * GRAPH_K)
+    copy_ms = []
+    for b in host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(b, "cuda")
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(v.nbytes for v in host[0].values())
+    emit({"phase": "prefetch", "shape_TBL": list(shape),
+          "batch_bytes": nbytes, "to_device_ms": spread(copy_ms),
+          "to_device_GBps": nbytes / (min(copy_ms) * 1e-3) / 1e9,
+          "k": GRAPH_K, "steps_per_window": PROFILE_STEPS,
+          **in_turns({"eager_to_device": plain,
+                      "eager_device_prefetch": prefetched,
+                      "graph_host_batches": graph}),
+          "seconds": time.perf_counter() - t0, "nvidia_smi": card})
 
 
 @contextlib.contextmanager
@@ -2444,15 +2989,23 @@ def main() -> None:
                                                                   card)
         charades_launches.update(phase_eval(work, card, corpus_paths,
                                             samples))
+        phase_trainer_features(work, card, corpus_paths)
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()
+    phase_profile_graph(card)
     phase_profile("blank", BLANK_CLASSES, BLANK_MAIN_SHAPE)
+    phase_profile_graph(card, "blank", BLANK_CLASSES, BLANK_MAIN_SHAPE)
     # the seq main-path step, and the unsharded step at the same shape
     for family, classes in (("noblank", 33), ("blank", BLANK_CLASSES)):
         T, B, L, M = SEQ_MAIN[family]
         phase_profile(family, classes, (T, B, L), microbatches=M)
+        phase_profile_graph(card, family, classes, (T, B, L), microbatches=M)
         phase_profile(family, classes, (T, B, L))
+        phase_profile_graph(card, family, classes, (T, B, L))
+    # host batches onto the card: 10.5 MB a batch at T=10, 67 MB at T=64
+    phase_prefetch(card)
+    phase_prefetch(card, SEQ_MAIN["noblank"][:3])
     times = {**phase_times(card, name), **phase_times_blank(card, name),
              **phase_times_seq(card, name)}
     probe_times = phase_probes(card, name)

@@ -1,8 +1,11 @@
 """Experiment entry point (port of ``ctc_tpu/cli/main.py``: the training path
 with ``--video-eval`` and ``--transition-metrics``, ``--evaluate`` with its
 video mAP, ``--groundtruth-lookup``, ``--my-dataset`` predictions and
-``--decode`` / ``--decode-beam`` / ``--decode-align``, and
-``--seq-parallel`` / ``--seq-microbatches``).
+``--decode`` / ``--decode-beam`` / ``--decode-align``,
+``--seq-parallel`` / ``--seq-microbatches``, and the one-card trainer
+features ``--steps-per-dispatch`` (one CUDA graph of K steps on the card),
+``--accum-grad``, ``--skip-nonfinite``, ``--grad-norm-freq``,
+``--max-restarts`` and ``--profile-dir``).
 
 Seed, tee, build the model and the trainer, build the data loaders
 (string-keyed dataset registry), optionally resume, then either evaluate
@@ -204,12 +207,16 @@ def main(argv=None):
         implementation=cfg.lattice_impl,
         # the reference's quirk: --alpha 1.0 (its default) means no CE term
         ce_weight=(cfg.alpha if cfg.alpha != 1.0 else 0.0),
+        accum_grad=cfg.accum_grad,
         print_test_freq=cfg.print_test_freq,
         train_size=cfg.train_size,
         val_size=cfg.val_size,
         device=device,
+        skip_nonfinite=cfg.skip_nonfinite,
+        grad_norm_freq=cfg.grad_norm_freq,
         seq_parallel=cfg.seq_parallel,
         seq_microbatches=cfg.seq_microbatches,
+        steps_per_dispatch=cfg.steps_per_dispatch,
         transition_metrics=cfg.transition_metrics,
         joint_object_weight=cfg.joint_object_weight,
     )
@@ -278,7 +285,9 @@ def main(argv=None):
     state, history = trainer.fit(train_batches, val_batches,
                                  epochs=cfg.epochs, state=state,
                                  start_epoch=start_epoch,
-                                 video_eval=video_eval)
+                                 video_eval=video_eval,
+                                 max_restarts=cfg.max_restarts,
+                                 profile_dir=(cfg.profile_dir or None))
     if history:
         print(f"done: best val top1 "
               f"{max(h['val']['top1'] for h in history):.3f}")

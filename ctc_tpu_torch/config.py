@@ -129,13 +129,6 @@ UNPORTED = (
      "Queue 1 item 14"),
     ("--model-parallel", lambda c: c.model_parallel > 1, "Queue 1 item 14"),
     ("--num-hosts", lambda c: c.num_hosts > 1, "Queue 1 item 14"),
-    ("--steps-per-dispatch", lambda c: c.steps_per_dispatch > 1,
-     "Queue 1 item 14"),
-    ("--accum-grad", lambda c: c.accum_grad > 1, "Queue 1 item 14"),
-    ("--profile-dir", lambda c: bool(c.profile_dir), "Queue 1 item 14"),
-    ("--skip-nonfinite", lambda c: c.skip_nonfinite, "Queue 1 item 14"),
-    ("--grad-norm-freq", lambda c: c.grad_norm_freq > 0, "Queue 1 item 14"),
-    ("--max-restarts", lambda c: c.max_restarts > 0, "Queue 1 item 14"),
     ("--compute-dtype bf16", lambda c: c.compute_dtype != "f32",
      "Queue 1 item 16"),
     ("a *_pixels dataset", lambda c: c.dataset.endswith("_pixels"),

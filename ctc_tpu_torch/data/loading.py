@@ -1,16 +1,17 @@
-"""Batch assembly, per-process index batches and background prefetch (port
-of ``ctc_tpu/data/loading.py``, numpy only).
+"""Batch assembly, per-process index batches and prefetch (port of
+``ctc_tpu/data/loading.py``).
 
 Collation into dense numpy batch dicts (the trainer moves them to the
 device), each process keeping only its ``process_index``-strided shard of
-one shared shuffle, and a depth-bounded background-thread prefetcher.
-``ctc_tpu``'s ``device_prefetch`` (a ``jax.device_put`` pipeline the
-trainer does not apply by default) is not ported here: its counterpart, a
-pinned-memory copy on a side stream, is ROADMAP Queue 1 item 14.
+one shared shuffle, a depth-bounded background-thread prefetcher, and
+:func:`device_prefetch`, which copies the next batches to the card from
+pinned host memory on a side stream while the current one trains (as in
+``ctc_tpu``, the trainer does not apply it: wrap a loader with it).
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
@@ -121,6 +122,56 @@ def host_shard_indices(
     if drop_last and batches and len(batches[-1]) < batch_size:
         batches.pop()
     return batches
+
+
+def device_prefetch(batches: Iterable, depth: int = 2,
+                    device="cuda") -> Iterator:
+    """Host->device pipeline: batches i+1..i+depth are copied while batch i
+    is in use.  Yields the batches in order as dicts of tensors on
+    ``device``.
+
+    On a CUDA device each field is pinned and copied on a side stream; the
+    consuming stream (the current one when the batch is yielded) waits on
+    the copy's event before it can use the batch, and the tensors are
+    marked as used on it.  On another device the batches are only
+    converted.
+    """
+    import torch
+
+    device = torch.device(device)
+    it = iter(batches)
+    if device.type != "cuda":
+        for batch in it:
+            yield {k: torch.as_tensor(np.asarray(v)).to(device)
+                   for k, v in batch.items()}
+        return
+    side = torch.cuda.Stream(device)
+    pending: collections.deque = collections.deque()
+
+    def push() -> bool:
+        try:
+            batch = next(it)
+        except StopIteration:
+            return False
+        with torch.cuda.stream(side):
+            out = {k: torch.as_tensor(np.asarray(v)).pin_memory()
+                   .to(device, non_blocking=True) for k, v in batch.items()}
+            ready = torch.cuda.Event()
+            ready.record(side)
+        pending.append((out, ready))
+        return True
+
+    for _ in range(depth):
+        if not push():
+            break
+    while pending:
+        out, ready = pending.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(ready)
+        for t in out.values():
+            t.record_stream(consumer)
+        push()
+        yield out
 
 
 class Prefetcher:

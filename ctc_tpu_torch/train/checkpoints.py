@@ -2,8 +2,12 @@
 ``torch.save`` in place of orbax).
 
 A checkpoint holds the model's ``state_dict`` (parameters and BatchNorm
-running statistics), the optimizer's state, the step, the epoch and the
-score, under ``<directory>/ckpt/<epoch>.pt``; the newest three are kept.
+running statistics), the optimizer's state (Adam's moments, the update
+count and the skipped-update count, as ``ctc_tpu``'s ``opt_state`` carries
+them), the batch count ``step``, the epoch and the score, under
+``<directory>/ckpt/<epoch>.pt``; the newest three are kept.  Loading
+copies into the state's existing tensors, so a CUDA graph captured over
+them stays valid.
 Beside it go the human-readable ``model_{epoch:03d}_{score:.4f}.txt`` and,
 for the best score, a copy at ``<directory>/ckpt_best.pt``.
 """
@@ -56,7 +60,8 @@ def save(directory: str, state, epoch: int, *, score: float = 0.0,
 
 
 def load(directory: str, state, *, epoch: int | None = None):
-    """Restore into ``state``; returns ``(state, epoch, score)``.
+    """Restore into ``state``, in place; returns ``(state, epoch,
+    score)``.
 
     No checkpoint returns the state unchanged with epoch -1.
     """
@@ -70,5 +75,5 @@ def load(directory: str, state, *, epoch: int | None = None):
                          map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.step = int(payload["step"])
+    state.step.copy_(torch.as_tensor(payload["step"]))
     return state, int(payload["epoch"]), float(payload["score"])

@@ -2,11 +2,20 @@
 ``ctc_tpu/train/trainer.py``: one device, or the lattice's T axis split
 into ``seq_parallel`` shards).
 
-* The optimizer is ``torch.optim.Adam`` with ``weight_decay`` as L2 added to
-  the gradient — optax's ``add_decayed_weights -> scale_by_adam ->
-  scale_by_learning_rate(schedule)`` chain.
-* The learning rate of update k (k from 0) is ``schedule(k)``: optax reads
-  the schedule with the update count before it increments.
+* The optimizer is :class:`ctc_tpu_torch.train.optim.TorchStyleAdam`:
+  Adam with ``weight_decay`` as L2 added to the gradient (optax's
+  ``add_decayed_weights -> scale_by_adam -> scale_by_learning_rate``),
+  wrapped as ``ctc_tpu`` wraps it in ``MultiSteps`` (``accum_grad``),
+  ``skip_nonfinite_updates`` and ``log_grad_norms``.
+* Two counts on the device, kept apart as in ``ctc_tpu``: the train
+  state's ``step`` counts batches (it moves the accumulation's mini-step);
+  the optimizer's ``count`` counts updates (the schedule and Adam's bias
+  correction read it; a skipped update does not move it).  The learning
+  rate of update k (k from 0) is ``schedule(k)``, read on the device.
+* ``steps_per_dispatch`` K > 1 runs each group of K batches of one shape
+  as one unit (:mod:`ctc_tpu_torch.train.graphs`): one CUDA graph replay
+  on the card; the sub-K remainder and groups of unequal shapes run single
+  steps.
 * Dropout draws its masks from the trainer's own ``torch.Generator``.
 * Everything runs on one explicit device, ``cuda`` unless the caller asks
   for the CPU; asking for CUDA without a card raises.
@@ -14,6 +23,7 @@ into ``seq_parallel`` shards).
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import itertools
 import os
@@ -21,17 +31,25 @@ import time
 from dataclasses import dataclass
 from functools import partial
 
-import numpy as np
 import torch
 
 from ctc_tpu_torch import losses
 from ctc_tpu_torch.losses.joint import split_joint_logits, unpack_joint_paths
+from ctc_tpu_torch.train.graphs import (
+    MultiStep,
+    host_rows,
+    signature,
+    stack_metrics,
+    to_device,
+)
+from ctc_tpu_torch.train.guards import grad_norm_line
 from ctc_tpu_torch.train.metrics import (
     AverageMeter,
     topk_accuracy,
     transition_accuracy,
     transition_recall,
 )
+from ctc_tpu_torch.train.optim import TorchStyleAdam, torch_style_adam
 from ctc_tpu_torch.train.schedule import step_decay_schedule
 
 
@@ -49,24 +67,19 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class TrainState:
-    """Model + optimizer + the count of optimizer updates so far."""
+    """Model + optimizer + the count of batches trained so far (``ctc_tpu``'s
+    ``TrainState.step``), a 0-d int64 tensor on the model's device that the
+    train step moves in place."""
 
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
-    step: int = 0
+    optimizer: TorchStyleAdam | None
+    step: torch.Tensor | int = 0
 
-
-def torch_style_adam(params, weight_decay: float = 0.0):
-    """``torch.optim.Adam`` whose learning rate the train step sets from the
-    schedule before each update."""
-    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
-
-
-def to_device(batch, device):
-    """Host batch dict (numpy) -> tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+    def __post_init__(self):
+        if not isinstance(self.step, torch.Tensor):
+            device = next(self.model.parameters()).device
+            self.step = torch.tensor(self.step, dtype=torch.int64,
+                                     device=device)
 
 
 def _model_input(feats):
@@ -111,14 +124,20 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
     ``input_lengths [B]``, ``target_lengths [B]``, ``future_target [B]``.
     ``ce_weight`` > 0 adds a cross-entropy term on the final timestep
     against the future target.  ``schedule(k)`` is the learning rate of
-    update k.  ``loss_fn`` overrides the registry lookup (the
-    sequence-sharded loss of
+    update k (called with the optimizer's count, a 0-d tensor; None: 0).
+    ``loss_fn`` overrides the registry lookup (the sequence-sharded loss of
     :func:`ctc_tpu_torch.parallel.seq_lattice.make_seq_sharded_loss`).
+
+    The step decides nothing on the host and reads nothing back, so the
+    same function runs eagerly and inside a captured CUDA graph
+    (:mod:`ctc_tpu_torch.train.graphs`).  Its metrics are 0-d tensors:
+    ``loss``, ``top1``, ``top5`` and the optimizer's guard metrics.
     """
     loss_fn = loss_fn or losses.LOSS_FNS[loss_kind]
 
     def train_step(state: TrainState, batch, generator=None):
         model, opt = state.model, state.optimizer
+        opt.begin(state.step)
         logits = model(_model_input(batch["feats"]), train=True,
                        generator=generator)  # [T, B, C]
         loss = loss_fn(logits, batch["paths"], batch["input_lengths"],
@@ -129,19 +148,17 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
                 _head_logits(logits[-1], batch, loss_kind),
                 batch["future_target"],
             )
-        opt.zero_grad(set_to_none=True)
         loss.backward()
-        if schedule is not None:
-            for group in opt.param_groups:
-                group["lr"] = schedule(state.step)
-        opt.step()
-        state.step += 1
+        lr = 0.0 if schedule is None else schedule(opt.count)
+        guards = opt.step(state.step, lr)
         with torch.no_grad():
+            state.step.add_(1)
             (top1, top5), _ = topk_accuracy(
                 _head_logits(logits[-1], batch, loss_kind),
                 batch["future_target"], topk=(1, 5)
             )
-        return state, {"loss": loss.detach(), "top1": top1, "top5": top5}
+        return state, {"loss": loss.detach(), "top1": top1, "top5": top5,
+                       **guards}
 
     return train_step
 
@@ -184,7 +201,8 @@ def make_eval_step(loss_kind: str = "noblank", implementation=None,
 class Trainer:
     """Epoch-loop runner with meters, CSV logs and checkpointing.
 
-    The data-loader contract is any iterable of host (numpy) batch dicts;
+    The data-loader contract is any iterable of host (numpy) batch dicts
+    (or of tensor dicts from :func:`ctc_tpu_torch.data.loading.device_prefetch`);
     epochs re-iterate the loader.
 
     ``seq_parallel`` > 1 splits the lattice's T axis into that many shards
@@ -194,6 +212,14 @@ class Trainer:
 
     ``transition_metrics`` adds the eval step's DTW transition metrics;
     ``joint_object_weight`` scales the joint loss's object term.
+
+    ``accum_grad`` k > 1 sums the gradients of k batches and steps on the
+    k-th; ``skip_nonfinite`` drops a non-finite update and keeps the
+    parameters and the optimizer's state; ``grad_norm_freq`` n > 0 prints
+    the global gradient norm every n updates (the optimizer chain of
+    :mod:`ctc_tpu_torch.train.optim`).  ``steps_per_dispatch`` K > 1 runs
+    each group of K equal-shaped batches as one unit: one CUDA graph of K
+    train (or eval) steps on the card, K steps in turn on the CPU.
     """
 
     def __init__(
@@ -210,23 +236,32 @@ class Trainer:
         seed: int = 0,
         implementation=None,
         ce_weight: float = 0.0,
+        accum_grad: int = 1,
         print_test_freq: int | None = None,
         train_size: float = 1.0,
         val_size: float = 1.0,
         device="cuda",
+        skip_nonfinite: bool = False,
+        grad_norm_freq: int = 0,
         seq_parallel: int = 0,
         seq_microbatches: int = 0,
+        steps_per_dispatch: int = 1,
         transition_metrics: bool = False,
         joint_object_weight: float = 1.0,
     ):
         self.device = resolve_device(device)
         self.model = model
         self.weight_decay = weight_decay
-        # the schedule advances once per optimizer step; subsampling
-        # (train_size < 1) shortens the epoch
+        # the schedule advances once per optimizer update: subsampling
+        # (train_size < 1) shortens the epoch, and accumulation updates
+        # once every accum_grad batches
         effective_steps = max(int(steps_per_epoch * min(train_size, 1.0)), 1)
+        opt_steps_per_epoch = max(effective_steps // max(accum_grad, 1), 1)
         self.schedule = step_decay_schedule(lr, lr_decay_epochs,
-                                            effective_steps)
+                                            opt_steps_per_epoch)
+        self.chain = {"accum_grad": accum_grad,
+                      "skip_nonfinite": skip_nonfinite,
+                      "grad_norm_freq": grad_norm_freq}
         loss_fn = None
         if loss_kind == "joint" and joint_object_weight != 1.0:
             loss_fn = partial(losses.joint_ov_ctc_loss,
@@ -261,6 +296,15 @@ class Trainer:
         # dropout masks; on the model's device so bernoulli_ can use it
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.steps_per_dispatch = max(steps_per_dispatch, 1)
+        if self.steps_per_dispatch > 1:
+            self.multi_step = MultiStep(self.train_step,
+                                        self.steps_per_dispatch, train=True,
+                                        device=self.device,
+                                        generator=self.generator)
+            self.multi_eval_step = MultiStep(self.eval_step,
+                                             self.steps_per_dispatch,
+                                             train=False, device=self.device)
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
 
@@ -276,8 +320,16 @@ class Trainer:
         else:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
-        opt = torch_style_adam(self.model.parameters(), self.weight_decay)
+        opt = torch_style_adam(self.model.parameters(), self.weight_decay,
+                               **self.chain)
         return TrainState(model=self.model, optimizer=opt)
+
+    @staticmethod
+    def _uniform_shapes(group) -> bool:
+        """True when every batch in a K-group has the same field shapes and
+        dtypes; a group that does not (a loader's short last batch inside
+        it) runs single steps, like the sub-K remainder."""
+        return len({signature(b) for b in group}) == 1
 
     @staticmethod
     def _part(loader, size: float):
@@ -286,6 +338,31 @@ class Trainer:
         except TypeError:
             return loader
         return itertools.islice(iter(loader), int(n * size))
+
+    def _groups(self, loader, size: float):
+        """The loader's batches in groups of ``steps_per_dispatch``."""
+        it = iter(self._part(loader, size))
+        while group := list(itertools.islice(it, self.steps_per_dispatch)):
+            yield group
+
+    def _run_group(self, state, group, train: bool) -> list[dict]:
+        """One group's steps; their metrics as host floats, read at once.
+
+        A full group of equal shapes is one unit (one graph replay on the
+        card); otherwise each batch is a single step."""
+        k = self.steps_per_dispatch
+        if k > 1 and len(group) == k and self._uniform_shapes(group):
+            multi = self.multi_step if train else self.multi_eval_step
+            return host_rows(multi(state, group))
+        rows = []
+        for host_batch in group:
+            batch = to_device(host_batch, self.device)
+            if train:
+                state, m = self.train_step(state, batch, self.generator)
+            else:
+                m = self.eval_step(state, batch)
+            rows.append(m)
+        return host_rows(stack_metrics(rows))
 
     def _csv_writer(self, name):
         if not self.cache_dir:
@@ -297,26 +374,32 @@ class Trainer:
         meters = {k: AverageMeter() for k in ("loss", "top1", "top5", "time")}
         log = self._csv_writer("train_log.csv")
         end = time.time()
+        i = 0
         try:
-            for i, host_batch in enumerate(self._part(loader, self.train_size)):
-                batch = to_device(host_batch, self.device)
-                state, metrics = self.train_step(state, batch, self.generator)
-                n = batch["feats"].shape[0]
-                for k in ("loss", "top1", "top5"):
-                    meters[k].update(float(metrics[k]), n)
-                meters["time"].update(time.time() - end)
-                end = time.time()
-                if i % self.print_freq == 0:
-                    print(
-                        f"Epoch: [{epoch}][{i}]\t"
-                        f"Loss {meters['loss'].val:.3f} ({meters['loss'].avg:.3f})\t"
-                        f"Prec@1 {meters['top1'].val:.3f} ({meters['top1'].avg:.3f})\t"
-                        f"Prec@5 {meters['top5'].val:.3f} ({meters['top5'].avg:.3f})"
-                    )
-                    if log:
-                        log[1].writerow([epoch, i, meters["loss"].val,
-                                         meters["top1"].val,
-                                         meters["top5"].val])
+            for group in self._groups(loader, self.train_size):
+                rows = self._run_group(state, group, train=True)
+                for m in rows:
+                    if m.get("grad_norm_due"):
+                        print(grad_norm_line(int(m["grad_norm_step"]),
+                                             m["grad_norm"]))
+                for host_batch, m in zip(group, rows):
+                    n = host_batch["feats"].shape[0]
+                    for k in ("loss", "top1", "top5"):
+                        meters[k].update(m[k], n)
+                    meters["time"].update(time.time() - end)
+                    end = time.time()
+                    if i % self.print_freq == 0:
+                        print(
+                            f"Epoch: [{epoch}][{i}]\t"
+                            f"Loss {meters['loss'].val:.3f} ({meters['loss'].avg:.3f})\t"
+                            f"Prec@1 {meters['top1'].val:.3f} ({meters['top1'].avg:.3f})\t"
+                            f"Prec@5 {meters['top5'].val:.3f} ({meters['top5'].avg:.3f})"
+                        )
+                        if log:
+                            log[1].writerow([epoch, i, meters["loss"].val,
+                                             meters["top1"].val,
+                                             meters["top5"].val])
+                    i += 1
         finally:
             if log:
                 log[0].close()
@@ -325,16 +408,19 @@ class Trainer:
     def validate(self, state: TrainState, loader, epoch: int):
         meters: dict[str, AverageMeter] = {}
         log = self._csv_writer("test_log.csv")
+        i = 0
         try:
-            for i, host_batch in enumerate(self._part(loader, self.val_size)):
-                batch = to_device(host_batch, self.device)
-                metrics = self.eval_step(state, batch)
-                n = batch["feats"].shape[0]
-                for k, v in metrics.items():
-                    meters.setdefault(k, AverageMeter()).update(float(v), n)
-                if log and i % self.print_test_freq == 0:
-                    log[1].writerow([epoch, i, meters["loss"].val,
-                                     meters["top1"].val, meters["top5"].val])
+            for group in self._groups(loader, self.val_size):
+                rows = self._run_group(state, group, train=False)
+                for host_batch, m in zip(group, rows):
+                    n = host_batch["feats"].shape[0]
+                    for k, v in m.items():
+                        meters.setdefault(k, AverageMeter()).update(v, n)
+                    if log and i % self.print_test_freq == 0:
+                        log[1].writerow([epoch, i, meters["loss"].val,
+                                         meters["top1"].val,
+                                         meters["top5"].val])
+                    i += 1
         finally:
             if log:
                 log[0].close()
@@ -342,7 +428,8 @@ class Trainer:
 
     def fit(self, train_loader, val_loader, *, epochs: int,
             state: TrainState | None = None, start_epoch: int = 0,
-            video_eval=None):
+            video_eval=None, max_restarts: int = 0,
+            profile_dir: str | None = None):
         """Epoch loop with per-epoch CSV score rows and checkpoints; the
         checkpoint with the best score is also copied.
 
@@ -351,21 +438,54 @@ class Trainer:
         :func:`ctc_tpu_torch.eval.video.evaluate_videos`).  Given one, each
         epoch's mAP goes into the val metrics and the score log's sixth
         column, and is the checkpoint's score; without it the score is the
-        validation top-1."""
+        validation top-1.
+
+        ``max_restarts`` > 0: an epoch that raises restores the last
+        checkpoint (in place) and goes on from the epoch after it, at most
+        that many times; it needs ``cache_dir``.  Without a checkpoint the
+        state stays as it is and the loop restarts at ``start_epoch``.
+
+        ``profile_dir``: a ``torch.profiler`` trace of the first trained
+        epoch, written into that directory as a ``*.json`` file
+        (:func:`ctc_tpu_torch.utils.profiling.trace`); an epoch that
+        crashes leaves its trace and the retry is traced again."""
         from ctc_tpu_torch.train import checkpoints as ckpt
 
         if state is None:
             state = self.init_state()
         best = -float("inf")
         history = []
+        restarts = 0
+        traced = False
         score_log = self._csv_writer("score.csv")
+        epoch = start_epoch
         try:
-            for epoch in range(start_epoch, epochs):
-                state, train_metrics = self.train_epoch(state, train_loader,
-                                                        epoch)
-                val_metrics = self.validate(state, val_loader, epoch)
-                if video_eval is not None:
-                    val_metrics["mAP"] = float(video_eval(state)["mAP"])
+            while epoch < epochs:
+                try:
+                    if profile_dir and not traced:
+                        from ctc_tpu_torch.utils.profiling import trace
+
+                        ctx = trace(profile_dir,
+                                    cuda=self.device.type == "cuda")
+                    else:
+                        ctx = contextlib.nullcontext()
+                    with ctx:
+                        state, train_metrics = self.train_epoch(
+                            state, train_loader, epoch)
+                    # only a completed epoch counts as traced
+                    traced = traced or bool(profile_dir)
+                    val_metrics = self.validate(state, val_loader, epoch)
+                    if video_eval is not None:
+                        val_metrics["mAP"] = float(video_eval(state)["mAP"])
+                except Exception as e:
+                    if restarts >= max_restarts or not self.cache_dir:
+                        raise
+                    restarts += 1
+                    state, last_epoch, _ = ckpt.load(self.cache_dir, state)
+                    print(f"epoch {epoch} failed ({type(e).__name__}: {e}); "
+                          f"restored epoch {last_epoch}, restart {restarts}")
+                    epoch = last_epoch + 1 if last_epoch >= 0 else start_epoch
+                    continue
                 history.append({"train": train_metrics, "val": val_metrics})
                 if score_log:
                     row = [epoch, train_metrics["loss"], val_metrics["loss"],
@@ -380,6 +500,7 @@ class Trainer:
                     best = max(best, score)
                     ckpt.save(self.cache_dir, state, epoch, score=score,
                               is_best=is_best)
+                epoch += 1
         finally:
             if score_log:
                 score_log[0].close()

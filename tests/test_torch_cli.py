@@ -1,8 +1,9 @@
 """ctc_tpu_torch's command-line entry point on the CPU: it writes the same CSV
 files with the same columns as ctc_tpu's, resumes and evaluates, trains the
 blank loss and decodes from its checkpoint, draws the same synthetic batches
-as ctc_tpu's loader, refuses CUDA without a card, and refuses every flag
-whose code is not ported; ``--evaluate`` prints the video mAP, reads
+as ctc_tpu's loader, refuses CUDA without a card, runs the one-card
+trainer flags as ctc_tpu's CLI does, and refuses every flag whose code is
+not ported; ``--evaluate`` prints the video mAP, reads
 ``--groundtruth-lookup`` and writes the ``--my-dataset`` predictions."""
 
 import csv
@@ -119,12 +120,6 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
         (["--model-parallel", "2"], "item 14"),
         (["--seq-parallel", "2", "--data-parallel", "2"], "item 14"),
         (["--num-hosts", "2"], "item 14"),
-        (["--steps-per-dispatch", "2"], "item 14"),
-        (["--accum-grad", "2"], "item 14"),
-        (["--profile-dir", "trace"], "item 14"),
-        (["--skip-nonfinite"], "item 14"),
-        (["--grad-norm-freq", "2"], "item 14"),
-        (["--max-restarts", "1"], "item 14"),
         (["--compute-dtype", "bf16"], "item 16"),
         (["--dataset", "charades_pixels"], "item 12"),
         pytest.param(["--dataset", "charades_ctc_next_pred"], "item 12",
@@ -137,6 +132,60 @@ def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         main(TINY + ["--epochs", "1", "--device", "cpu",
                      "--cache-dir", str(tmp_path)] + flags)
+
+
+def _score_rows(run_dir):
+    with open(run_dir / "score.csv", newline="") as f:
+        return [[float(c) for c in row] for row in csv.reader(f)]
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--steps-per-dispatch", "2"], ["--accum-grad", "2"],
+     ["--profile-dir", "TRACE"], ["--skip-nonfinite"],
+     ["--grad-norm-freq", "2"], ["--max-restarts", "1"]],
+    ids=lambda f: f[0].lstrip("-"),
+)
+def test_trainer_feature_flags_run_like_jax(tmp_path, monkeypatch, flags):
+    """The one-card trainer flags (ROADMAP item 14's first half) run to
+    the end on the CPU, and score.csv matches ctc_tpu's CLI run under the
+    same flags from the same initial weights, dropout off: the epoch, the
+    train and val losses to rtol 1e-5, top-1 and top-5 exactly."""
+    from ctc_tpu.train import Trainer as JaxTrainer
+    from ctc_tpu_torch.models import lstm_head_from_jax
+    from ctc_tpu_torch.train import Trainer
+    from torch_trainer_pair import np_tree
+
+    weights = {}
+    jax_init = JaxTrainer.init_state
+
+    def jax_init_keeping_weights(self, batch):
+        state = jax_init(self, batch)
+        weights["jax"] = lstm_head_from_jax(np_tree(state.params),
+                                            np_tree(state.batch_stats))
+        return state
+
+    port_init = Trainer.init_state
+    monkeypatch.setattr(JaxTrainer, "init_state", jax_init_keeping_weights)
+    monkeypatch.setattr(Trainer, "init_state",
+                        lambda self, state_dict=None:
+                        port_init(self, weights["jax"]))
+    argv = TINY + ["--epochs", "2", "--dropout", "0"]
+    runs = {}
+    for pkg, entry, extra in (("jax", jax_main, ["--lattice-impl", "xla"]),
+                              ("torch", main, ["--device", "cpu"])):
+        trace = str(tmp_path / f"{pkg}_trace")
+        history = entry(argv + [trace if f == "TRACE" else f for f in flags]
+                        + extra + ["--cache-dir", str(tmp_path / pkg)])
+        assert len(history) == 2
+        runs[pkg] = _score_rows(tmp_path / pkg / "test")
+    want, got = runs["jax"], runs["torch"]
+    assert [r[0] for r in got] == [r[0] for r in want] == [0, 1]
+    np.testing.assert_allclose([r[1:3] for r in got], [r[1:3] for r in want],
+                               rtol=1e-5)
+    assert [r[3:] for r in got] == [r[3:] for r in want]
+    if flags[0] == "--profile-dir":
+        assert len(list((tmp_path / "torch_trace").glob("*.json"))) == 1
 
 
 @pytest.mark.parametrize(
