@@ -16,7 +16,10 @@ decode; the eval held to the CPU's), runs the one-card trainer features
 (K steps as one CUDA graph held to the same steps run eagerly, the CLI with
 --steps-per-dispatch, --accum-grad, --skip-nonfinite, --grad-norm-freq and
 --profile-dir, a restart after a crash, the Charades default run in groups
-of 4), checks that each run went through its kernels, profiles each train
+of 4), trains over the data axis (two gloo ranks sharing the card against
+one rank, one NCCL rank with its all-reduces in a K-step CUDA graph, four
+class shards, 2 ranks x 4 seq shards, two CLI processes joined by
+--num-hosts 2), checks that each run went through its kernels, profiles each train
 step eagerly and as a graph and host batches fed plainly and through
 ``device_prefetch``, and times each
 kernel beside its plain version, its bound and, where one exists, the
@@ -1240,14 +1243,15 @@ GRAPH_K = 8
 GRAPH_RTOL, GRAPH_ATOL = 1e-5, 1e-6
 # ...except feature_head.proj.bias and the BatchNorm running mean that
 # carries it, at 2 lr an update: the bias's gradient is rounding noise
-# (STEP_ZERO_GRAD_PARAMS), and the blank loss's emission gather adds the
-# repeated blank slot's gradients by atomics, in no fixed order, so the
-# noise, which Adam scales to steps of up to lr, differs from run to run
+# (STEP_ZERO_GRAD_PARAMS), which Adam scales to steps of up to lr, and
+# where a step does not repeat bit for bit that noise differs from run to
+# run
 GRAPH_NOISE_CARRIERS = ("feature_head.proj.bias",
                         "feature_head.bn.running_mean")
 GRAPH_LR = 1e-3  # the schedule's base rate in the graph cases
 # a path whose eager steps do not repeat bit for bit is held to this many
-# times their own run-to-run max |dev|: two eager runs of blank at seq 4
+# times their own run-to-run max |dev|: before the blank emission gather's
+# backward became a one-hot product, two eager runs of blank at seq 4
 # differed by 3.6e-6 and 1.7e-5 in two smokes on an H100, the graph by
 # 9.5e-6 and 1.6e-5; a graph that reused dropout masks or misread a count
 # would move the parameters by ~1e-3
@@ -1371,9 +1375,8 @@ def graph_vs_eager(label, loss, classes, shape, microbatches, chain, nan_at):
     generator, dropout 0.3, and the eager steps once more; the replay's
     lattice launches from the profiler.  Each part is held to GRAPH_RTOL
     / GRAPH_ATOL (the noise carriers to 2 lr an update); where the eager
-    steps themselves do not repeat (blank: the emission gather's backward
-    adds the repeated blank slot's gradients by atomics, in no fixed
-    order), to GRAPH_NOISE_FACTOR times their own run-to-run max |dev|.
+    steps themselves do not repeat, to GRAPH_NOISE_FACTOR times their own
+    run-to-run max |dev|.
     Returns the case's row."""
     import numpy as np
     import torch
@@ -1622,6 +1625,459 @@ def phase_trainer_features(work, card, paths):
                               "k1": {k: v for k, v in counted_1.items()
                                      if v}},
           "nvidia_smi": card})
+
+
+# the parallel phase: the main path's run (synthetic, a global batch of 256,
+# T=10, 1024-d, head 33, noblank, 2 epochs) over the data axis, dropout 0 so
+# that runs which split the batch otherwise agree; the CLI is driven in
+# processes of its own (``--cli-child``) where it starts ranks, in this one
+# where it runs one rank
+PAR_ARGS = MAIN_ARGS + ["--dropout", "0"]
+PAR_SEQ_ARGS = SEQ_COMMON + SEQ_FLAGS + ["--seq-microbatches", "8",
+                                         "--dropout", "0"]
+PAR_BINARY_ARGS = PAR_ARGS + ["--loss", "binary"]
+PAR_BLANK_ARGS = PAR_ARGS + ["--loss", "blank"]
+PAR_K = 8  # --steps-per-dispatch of the one-rank NCCL run
+PAR_LR = 1e-3  # the CLI's --lr
+# runs that split the batch otherwise: the loss to rtol 1e-5; weights to
+# rtol 1e-5 / atol STEP_PARAM_ATOL (a rank's rows run the head's matmuls at
+# other shapes than the whole batch, so cuBLAS sums them in another order,
+# as the card against the CPU does; Adam turns that rounding into steps of
+# up to lr where a gradient is near it), the zero-gradient bias and the
+# running mean that carries it to 2 lr an update
+# (tests/torch_trainer_pair.py)
+PAR_LOSS_RTOL = 1e-5
+PAR_WEIGHT_RTOL, PAR_WEIGHT_ATOL = 1e-5, STEP_PARAM_ATOL
+PAR_BIAS_CARRIERS = ("feature_head.proj.bias",
+                     "feature_head.bn.running_mean")
+PAR_TRAIN_STEPS = 16  # the synthetic loader's 8 batches, 2 epochs
+PAR_TIMEOUT = 300  # seconds, one CLI process and the ranks it starts
+
+
+def _instrument(calls):
+    """Count ``all_reduce`` calls made eagerly and while a CUDA graph is
+    captured, and graph replays; returns the undo."""
+    import torch
+    import torch.distributed as dist
+
+    real_ar, real_replay = dist.all_reduce, torch.cuda.CUDAGraph.replay
+
+    def all_reduce(tensor, *args, **kwargs):
+        key = ("captured" if torch.cuda.is_current_stream_capturing()
+               else "eager")
+        calls[key] += 1
+        return real_ar(tensor, *args, **kwargs)
+
+    def replay(self):
+        calls["graph_replays"] += 1
+        return real_replay(self)
+
+    dist.all_reduce, torch.cuda.CUDAGraph.replay = all_reduce, replay
+
+    def undo():
+        dist.all_reduce, torch.cuda.CUDAGraph.replay = real_ar, real_replay
+
+    return undo
+
+
+def _allreduce_ms(mesh, numel, iters=20):
+    """Median ms of one all-reduce of ``numel`` f32 on the mesh's group,
+    synchronized on both sides."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.zeros(numel, device=mesh.devices[0])
+    times = []
+    for i in range(iters + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def exchange_numel(cfg) -> int:
+    """Floats one train step's exchange all-reduces: the head's
+    parameters and BatchNorm statistics, and three metrics."""
+    from ctc_tpu_torch.models import LSTMHead
+
+    model = LSTMHead(cfg.extract_feat_dim, cfg.head_classes)
+    return (sum(p.numel() for p in model.parameters())
+            + sum(b.numel() for b in model.buffers()) + 3)
+
+
+def counted_run_rank(report_dir, local_rank, cfg, plan):
+    """``cli.main.run_rank`` with this rank's lattice launches, its
+    all-reduces (eager and captured), its graph replays and the time of
+    one exchange-sized all-reduce on its group written to
+    ``report_dir/rank<r>.json``."""
+    from ctc_tpu_torch.cli import main as cli_main
+
+    real_run_rank = getattr(cli_main, "_smoke_real_run_rank",
+                            cli_main.run_rank)
+    real_run = cli_main.run
+    calls = {"eager": 0, "captured": 0, "graph_replays": 0}
+    counted, timing = {}, {}
+
+    def timed_run(cfg, device, mesh=None):
+        out = real_run(cfg, device, mesh)
+        counted.update(calls)  # the run's, not the timing's below
+        numel = exchange_numel(cfg)
+        timing.update(backend=mesh.backend, bytes=4 * numel,
+                      ms=_allreduce_ms(mesh, numel))
+        return out
+
+    undo = _instrument(calls)
+    cli_main.run = timed_run
+    reset_counts()
+    try:
+        history = real_run_rank(local_rank, cfg, plan)
+    finally:
+        cli_main.run = real_run
+        undo()
+    rank = plan.host_id * plan.local_ranks + local_rank
+    with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "launches": read_counts(),
+                   "collectives": counted, "allreduce": timing,
+                   "history": history}, f)
+    return history
+
+
+def counted_main(argv, report_dir):
+    """``cli.main.main(argv)`` with every rank it runs reporting to
+    ``report_dir`` (:func:`counted_run_rank`)."""
+    import functools
+
+    from ctc_tpu_torch.cli import main as cli_main
+
+    os.makedirs(report_dir, exist_ok=True)
+    cli_main._smoke_real_run_rank = real = cli_main.run_rank
+    cli_main.run_rank = functools.partial(counted_run_rank, report_dir)
+    try:
+        return cli_main.main(argv)
+    finally:
+        cli_main.run_rank = real
+
+
+def rank_reports(report_dir) -> list:
+    out = []
+    for name in sorted(os.listdir(report_dir)):
+        with open(os.path.join(report_dir, name)) as f:
+            out.append(json.load(f))
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def cli_children(label, argvs, work):
+    """Run ``cli.main`` in one process per argv (``python3 chip_smoke.py
+    --cli-child DIR ARGV``), at once, each bounded by PAR_TIMEOUT; returns
+    (rank reports, the processes' outputs, seconds)."""
+    report_dir = os.path.join(work, f"{label}_ranks")
+    os.makedirs(report_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli-child",
+         report_dir, *argv], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for argv in argvs]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=PAR_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                if q.poll() is None:
+                    os.killpg(q.pid, 9)
+            fail(f"parallel {label}: past {PAR_TIMEOUT} s:\n"
+                 f"{p.communicate()[0][-4000:]}")
+        if p.returncode:
+            fail(f"parallel {label}: exit {p.returncode}:\n{out[-4000:]}")
+        outs.append(out)
+    return rank_reports(report_dir), outs, time.perf_counter() - t0
+
+
+def final_weights(cache):
+    import torch
+
+    ckpt_dir = os.path.join(cache, "test", "ckpt")
+    last = max(int(f[:-3]) for f in os.listdir(ckpt_dir)
+               if f[:-3].isdigit())
+    payload = torch.load(os.path.join(ckpt_dir, f"{last}.pt"),
+                         map_location="cpu", weights_only=True)
+    return payload["model"]
+
+
+def weights_dev(label, got, want, updates, rtol=PAR_WEIGHT_RTOL,
+                atol=PAR_WEIGHT_ATOL) -> dict:
+    """Max |dev| of two runs' final weights, by parameter; fails beyond
+    the tolerance (the noise carriers to 2 lr an update)."""
+    import torch
+
+    worst = {}
+    for name, w in want.items():
+        g = got[name]
+        worst[name] = max_dev(g, w)
+        tol = ((0.0, 2 * PAR_LR * updates) if name in PAR_BIAS_CARRIERS
+               else (rtol, atol))
+        if not torch.allclose(g, w, rtol=tol[0], atol=tol[1]):
+            fail(f"parallel {label}: {name} max |dev| {max_dev(g, w)} "
+                 f"beyond rtol {tol[0]} atol {tol[1]}")
+    return worst
+
+
+def history_rows(history) -> list:
+    return [[h[part][c] for part in ("train", "val")
+             for c in ("loss", "top1", "top5")] for h in history]
+
+
+def check_histories(label, got, want, rtol=PAR_LOSS_RTOL, atol=0.0):
+    """Per epoch: train and val loss, top-1 and top-5; returns max |dev|."""
+    import numpy as np
+
+    g, w = history_rows(got), history_rows(want)
+    if len(g) != len(w) or not np.allclose(g, w, rtol=rtol, atol=atol):
+        fail(f"parallel {label}: {g} against {w}")
+    return float(np.max(np.abs(np.subtract(g, w))))
+
+
+def step_ms(history) -> list:
+    return [h["train"]["time"] * 1e3 for h in history]
+
+
+def phase_parallel(work, card):
+    """The data axis on the card at the main path's width: two gloo ranks
+    sharing cuda:0 against one rank of the same global batch, rows 1-2
+    launched once per rank a step, and again under --loss blank (rows
+    5-6); one NCCL rank with K=8 steps a CUDA
+    graph, its all-reduces captured, against its eager run; four class
+    shards (binary) against none; 2 ranks x 4 seq shards at T=64 (rows
+    3-4); two CLI processes joined by --num-hosts 2; two NCCL ranks on two
+    cards where the machine has them.  Returns the launches of each run,
+    by rank."""
+    import torch
+
+    from ctc_tpu_torch.cli.main import main
+
+    def in_process(argv):
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            history = main(argv)
+        torch.cuda.synchronize()
+        return history, read_counts(), time.perf_counter() - t0
+
+    per_step = expect_counts(noblank=(PAR_TRAIN_STEPS + 4,
+                                      PAR_TRAIN_STEPS))
+    launches = {}
+    one_cache = os.path.join(work, "par_one")
+    h_one, c_one, s_one = in_process(PAR_ARGS + ["--cache-dir", one_cache])
+    if c_one != per_step:
+        fail(f"parallel one rank: launches {c_one}, expected {per_step}")
+    w_one = final_weights(one_cache)
+
+    # two gloo ranks sharing the card (NCCL where each has a card)
+    d2_cache = os.path.join(work, "par_d2")
+    reports, outs, secs = cli_children(
+        "d2", [PAR_ARGS + ["--data-parallel", "2", "--cache-dir",
+                           d2_cache]], work)
+    backend = reports[0]["allreduce"]["backend"]
+    for r in reports:
+        if r["launches"] != per_step:
+            fail(f"parallel d2 rank {r['rank']}: launches "
+                 f"{r['launches']}, expected {per_step}")
+    launches["dp2"] = [r["launches"] for r in reports]
+    h_d2 = reports[0]["history"]
+    emit({"phase": "parallel", "run": "data_parallel_2",
+          "argv": PAR_ARGS + ["--data-parallel", "2"], "seconds": secs,
+          "ranks": len(reports), "backend": backend,
+          "history_max_abs_dev": check_histories("d2", h_d2, h_one),
+          "weights_max_abs_dev": weights_dev("d2", final_weights(d2_cache),
+                                             w_one, PAR_TRAIN_STEPS),
+          "launches_per_rank": {k: v for k, v in
+                                reports[0]["launches"].items() if v},
+          "allreduce_per_rank": reports[0]["collectives"],
+          "exchange": reports[0]["allreduce"],
+          "step_ms": {"one_rank": step_ms(h_one),
+                      "two_ranks_one_card_not_a_scaling_figure"
+                      if backend == "gloo" else "two_ranks_two_cards":
+                      step_ms(h_d2)},
+          "mesh_line": [ln for ln in outs[0].splitlines()
+                        if ln.startswith("data-parallel:")],
+          "nvidia_smi": card})
+
+    # blank CTC (rows 5-6) on 2 ranks against one rank.  Its first step's
+    # reduced gradient is the whole batch's (tests/test_torch_composed.py),
+    # but over 16 steps a few weights part by more than the noblank run's
+    # (a rounding difference at a ReLU's kink changes a gradient by a
+    # step, which Adam turns into up to lr).  So its weights are held to the
+    # noise carriers' bound, 2 lr an update, and its losses to rtol 1e-5
+    blank_cache = os.path.join(work, "par_blank")
+    h_blank, _, _ = in_process(PAR_BLANK_ARGS + ["--cache-dir", blank_cache])
+    d2b_cache = os.path.join(work, "par_d2_blank")
+    reports, _, secs = cli_children(
+        "d2_blank", [PAR_BLANK_ARGS + ["--data-parallel", "2",
+                                       "--cache-dir", d2b_cache]], work)
+    want = expect_counts(blank=(PAR_TRAIN_STEPS + 4, PAR_TRAIN_STEPS))
+    for r in reports:
+        if r["launches"] != want:
+            fail(f"parallel d2 blank rank {r['rank']}: launches "
+                 f"{r['launches']}, expected {want}")
+    launches["dp2_blank"] = [r["launches"] for r in reports]
+    emit({"phase": "parallel", "run": "data_parallel_2_blank",
+          "argv": PAR_BLANK_ARGS + ["--data-parallel", "2"],
+          "seconds": secs,
+          "history_max_abs_dev": check_histories(
+              "d2 blank", reports[0]["history"], h_blank),
+          "weights_max_abs_dev": weights_dev(
+              "d2 blank", final_weights(d2b_cache),
+              final_weights(blank_cache), PAR_TRAIN_STEPS, rtol=0.0,
+              atol=2 * PAR_LR * PAR_TRAIN_STEPS),
+          "launches_per_rank": {k: v for k, v in
+                                reports[0]["launches"].items() if v},
+          "exchange": reports[0]["allreduce"],
+          "step_ms": {"one_rank": step_ms(h_blank),
+                      "two_ranks_one_card_not_a_scaling_figure"
+                      if backend == "gloo" else "two_ranks_two_cards":
+                      step_ms(reports[0]["history"])},
+          "nvidia_smi": card})
+
+    # one NCCL rank: eager, then K steps a CUDA graph with the all-reduce
+    runs = {}
+    for k in (1, PAR_K):
+        cache = os.path.join(work, f"par_nccl_k{k}")
+        rdir = os.path.join(work, f"par_nccl_k{k}_ranks")
+        argv = PAR_ARGS + ["--data-parallel", "1", "--steps-per-dispatch",
+                           str(k), "--cache-dir", cache]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            history = counted_main(argv, rdir)
+        torch.cuda.synchronize()
+        (report,) = rank_reports(rdir)
+        runs[k] = (history, report, final_weights(cache),
+                   time.perf_counter() - t0, argv)
+    (h_e, r_e, w_e, s_e, _), (h_g, r_g, w_g, s_g, argv_g) = (runs[1],
+                                                              runs[PAR_K])
+    if r_g["allreduce"]["backend"] != "nccl":
+        fail(f"parallel nccl: backend {r_g['allreduce']['backend']}")
+    # counters tick at the warm-up group and the capture (8 + 8) and at
+    # the 4 eager val steps; epoch 1's group is a replay
+    for label, r in (("eager", r_e), ("graph", r_g)):
+        if r["launches"] != per_step:
+            fail(f"parallel nccl {label}: launches {r['launches']}")
+    if not (r_g["collectives"]["captured"] > 0
+            and r_g["collectives"]["graph_replays"] >= 1
+            and r_e["collectives"]["captured"] == 0):
+        fail(f"parallel nccl: collectives {r_g['collectives']} (graph), "
+             f"{r_e['collectives']} (eager)")
+    launches["dp1_nccl_k8"] = [r_g["launches"]]
+    emit({"phase": "parallel", "run": "nccl_one_rank_graph",
+          "argv": argv_g, "seconds": {"eager": s_e, "graph": s_g},
+          "history_max_abs_dev": check_histories(
+              "nccl graph", h_g, h_e, GRAPH_RTOL, GRAPH_ATOL),
+          "weights_max_abs_dev": weights_dev(
+              "nccl graph", w_g, w_e, PAR_TRAIN_STEPS, GRAPH_RTOL,
+              GRAPH_ATOL),
+          "vs_no_process_group_max_abs_dev": check_histories(
+              "nccl eager vs none", h_e, h_one),
+          "collectives": {"eager": r_e["collectives"],
+                          "graph": r_g["collectives"]},
+          "exchange": r_g["allreduce"],
+          "step_ms": {"eager": step_ms(h_e), "graph": step_ms(h_g)},
+          "nvidia_smi": card})
+
+    # four class shards of the binary loss against none
+    mp_cache, bin_cache = (os.path.join(work, n)
+                           for n in ("par_mp4", "par_binary"))
+    h_bin, _, _ = in_process(PAR_BINARY_ARGS + ["--cache-dir", bin_cache])
+    h_mp, c_mp, s_mp = in_process(PAR_BINARY_ARGS + [
+        "--model-parallel", "4", "--cache-dir", mp_cache])
+    if c_mp != per_step:
+        fail(f"parallel model 4: launches {c_mp}, expected {per_step}")
+    launches["mp4_binary"] = [c_mp]
+    emit({"phase": "parallel", "run": "model_parallel_4_binary",
+          "argv": PAR_BINARY_ARGS + ["--model-parallel", "4"],
+          "seconds": s_mp,
+          "history_max_abs_dev": check_histories("model 4", h_mp, h_bin),
+          "weights_max_abs_dev": weights_dev(
+              "model 4", final_weights(mp_cache), final_weights(bin_cache),
+              PAR_TRAIN_STEPS),
+          "nvidia_smi": card})
+
+    # 2 ranks x 4 seq shards at T=64 against one process's 4 shards
+    T, _, _, m = SEQ_MAIN["noblank"]
+    seq_one = os.path.join(work, "par_seq_one")
+    h_s1, _, _ = in_process(PAR_SEQ_ARGS + ["--cache-dir", seq_one])
+    ds_cache = os.path.join(work, "par_d2_seq4")
+    reports, _, secs = cli_children(
+        "d2_seq4", [PAR_SEQ_ARGS + ["--data-parallel", "2", "--cache-dir",
+                                    ds_cache]], work)
+    want = expect_counts(noblank_shard=(
+        SEQ_SHARDS * m * (PAR_TRAIN_STEPS + 4),
+        SEQ_SHARDS * m * PAR_TRAIN_STEPS))
+    for r in reports:
+        if r["launches"] != want:
+            fail(f"parallel d2 x seq4 rank {r['rank']}: launches "
+                 f"{r['launches']}, expected {want}")
+    launches["dp2_seq4"] = [r["launches"] for r in reports]
+    emit({"phase": "parallel", "run": "data_2_x_seq_4",
+          "argv": PAR_SEQ_ARGS + ["--data-parallel", "2"], "seconds": secs,
+          "T": T, "microbatches_per_rank": m,
+          "history_max_abs_dev": check_histories(
+              "d2 x seq4", reports[0]["history"], h_s1),
+          "weights_max_abs_dev": weights_dev(
+              "d2 x seq4", final_weights(ds_cache), final_weights(seq_one),
+              PAR_TRAIN_STEPS),
+          "launches_per_rank": {k: v for k, v in
+                                reports[0]["launches"].items() if v},
+          "exchange": reports[0]["allreduce"],
+          "step_ms": {"one_process": step_ms(h_s1),
+                      "two_ranks_one_card_not_a_scaling_figure"
+                      if backend == "gloo" else "two_ranks_two_cards":
+                      step_ms(reports[0]["history"])},
+          "nvidia_smi": card})
+
+    # two CLI processes, one a host, on the card
+    from ctc_tpu_torch.parallel.launch import free_port
+
+    hosts_cache = os.path.join(work, "par_hosts")
+    coordinator = f"127.0.0.1:{free_port()}"
+    host_argv = [a for a in PAR_ARGS] + ["--num-hosts", "2",
+                                         "--coordinator", coordinator,
+                                         "--cache-dir", hosts_cache]
+    host_argv[host_argv.index("--batch-size") + 1] = "128"
+    reports, outs, secs = cli_children(
+        "hosts2", [host_argv + ["--host-id", str(h)] for h in range(2)],
+        work)
+    for r in reports:
+        if r["launches"] != per_step:
+            fail(f"parallel hosts rank {r['rank']}: launches "
+                 f"{r['launches']}, expected {per_step}")
+    launches["hosts2"] = [r["launches"] for r in reports]
+    emit({"phase": "parallel", "run": "num_hosts_2",
+          "argv": host_argv + ["--host-id", "h"], "seconds": secs,
+          "history_max_abs_dev": check_histories(
+              "hosts", reports[0]["history"], h_one),
+          "weights_max_abs_dev": weights_dev(
+              "hosts", final_weights(hosts_cache), w_one, PAR_TRAIN_STEPS),
+          "mesh_line": [ln for ln in outs[0].splitlines()
+                        if ln.startswith("data-parallel:")],
+          "exchange": reports[0]["allreduce"],
+          "step_ms": {"one_rank": step_ms(h_one),
+                      "two_processes_one_card_not_a_scaling_figure":
+                      step_ms(reports[0]["history"])},
+          "nvidia_smi": card})
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "parallel", "run": "nccl_two_cards",
+              "not_run": f"torch.cuda.device_count() = {count}"})
+    elif backend != "nccl":
+        fail(f"parallel d2 on {count} cards ran {backend}, not nccl")
+    else:
+        emit({"phase": "parallel", "run": "nccl_two_cards",
+              "ran_as": "data_parallel_2 above (backend nccl)"})
+    return launches
 
 
 def phase_step_vs_cpu():
@@ -2963,6 +3419,10 @@ def phase_probe_entry_points(probe_times):
 def main() -> None:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--cli-child":
+        # one CLI process of the parallel phase (cli_children)
+        counted_main(sys.argv[3:], sys.argv[2])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     try:
@@ -2990,6 +3450,7 @@ def main() -> None:
         charades_launches.update(phase_eval(work, card, corpus_paths,
                                             samples))
         phase_trainer_features(work, card, corpus_paths)
+        parallel_launches = phase_parallel(work, card)
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()
@@ -3038,6 +3499,10 @@ def main() -> None:
             # the same kernel's launches in each Charades run
             "charades_launches": {run: n[kname] for run, n in
                                   charades_launches.items() if n[kname]},
+            # and in each run of the parallel phase, rank by rank
+            "parallel_launches": {run: [n[kname] for n in ranks]
+                                  for run, ranks in parallel_launches.items()
+                                  if any(n[kname] for n in ranks)},
         })
     # the probes' path is their entry points at the bench shape
     for kname, meta in PROBE_KERNELS.items():

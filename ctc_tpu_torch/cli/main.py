@@ -2,16 +2,29 @@
 with ``--video-eval`` and ``--transition-metrics``, ``--evaluate`` with its
 video mAP, ``--groundtruth-lookup``, ``--my-dataset`` predictions and
 ``--decode`` / ``--decode-beam`` / ``--decode-align``,
-``--seq-parallel`` / ``--seq-microbatches``, and the one-card trainer
-features ``--steps-per-dispatch`` (one CUDA graph of K steps on the card),
-``--accum-grad``, ``--skip-nonfinite``, ``--grad-norm-freq``,
-``--max-restarts`` and ``--profile-dir``).
+``--seq-parallel`` / ``--seq-microbatches``, ``--model-parallel``, the
+one-card trainer features ``--steps-per-dispatch`` (one CUDA graph of K
+steps on the card), ``--accum-grad``, ``--skip-nonfinite``,
+``--grad-norm-freq``, ``--max-restarts`` and ``--profile-dir``, and the data
+axis ``--data-parallel`` / ``--num-hosts`` / ``--host-id`` /
+``--coordinator``).
 
 Seed, tee, build the model and the trainer, build the data loaders
 (string-keyed dataset registry), optionally resume, then either evaluate
 once (``--evaluate``) or run the epoch loop with CSV score logs and
 per-epoch checkpoints.  Runs on ``--device`` (default ``cuda``); with no
 card it raises unless ``--device cpu`` was passed.
+
+``--data-parallel N`` (or ``--num-hosts H``) trains over a process group of
+N ranks: each host starts its N / H ranks itself (one rank runs in this
+process, more are spawned), rank ``h * (N / H) + l`` for local rank ``l``
+of host ``h``, meeting at ``--coordinator`` across hosts.  Without
+``--data-parallel`` N is H times the ranks a host's cards hold (one on the
+CPU), as JAX's mesh takes every device.  ``--batch-size`` is a host's
+batch.  The backend is NCCL where each local rank has a card of its own,
+else gloo (ranks sharing a card, the CPU, or hosts meeting at a loopback
+address, which are processes of one machine).  Only rank 0 writes the log,
+the CSVs, the checkpoints and the decode files.
 
 Run: ``python -m ctc_tpu_torch.cli.main --dataset synthetic --epochs 3 ...``
 """
@@ -20,6 +33,9 @@ from __future__ import annotations
 
 import importlib
 import os
+from dataclasses import dataclass
+
+import torch
 
 from ctc_tpu_torch import config as config_lib
 from ctc_tpu_torch.models import LSTMHead
@@ -139,9 +155,9 @@ def make_video_eval(cfg):
     return video_eval
 
 
-def check_seq_flags(cfg) -> None:
+def check_seq_flags(cfg, rank_batch: int | None = None) -> None:
     """Refuse a ``--seq-parallel`` geometry the pipeline cannot split,
-    before any work."""
+    before any work; ``rank_batch`` is the rows of a data-parallel rank."""
     if cfg.seq_parallel <= 1:
         return
     if cfg.temporal % cfg.seq_parallel:
@@ -151,11 +167,109 @@ def check_seq_flags(cfg) -> None:
             "split into equal shards)"
         )
     m = cfg.seq_microbatches or cfg.seq_parallel
-    if cfg.batch_size % m:
+    if rank_batch is None and cfg.batch_size % m:
         raise SystemExit(
             f"--batch-size {cfg.batch_size} must be divisible by the seq "
             f"pipeline's microbatch count {m} (--seq-microbatches)"
         )
+    if rank_batch is not None and rank_batch % m:
+        raise SystemExit(
+            f"per-data-shard batch {rank_batch} must be divisible by the "
+            f"seq pipeline's microbatch count {m} (--seq-microbatches)"
+        )
+
+
+LOOPBACK = ("127.0.0.1", "localhost", "[::1]")
+
+
+@dataclass(frozen=True)
+class RankPlan:
+    """The data axis of a run: ``world`` ranks over ``hosts`` hosts, this
+    host's ``local_ranks`` of them, each rank's row of ``second`` model or
+    seq shards, the process group's backend and where the ranks meet."""
+
+    world: int
+    hosts: int
+    host_id: int
+    local_ranks: int
+    second: int
+    backend: str
+    coordinator: str | None
+
+
+def plan_ranks(cfg) -> RankPlan | None:
+    """The data axis that ``--data-parallel`` / ``--num-hosts`` ask for
+    (None when neither does), checked before any work with the
+    ``SystemExit`` messages of ``ctc_tpu``'s CLI."""
+    from ctc_tpu_torch.parallel.launch import free_port
+    from ctc_tpu_torch.parallel.mesh import pick_backend
+
+    hosts = cfg.num_hosts
+    if cfg.data_parallel is None and hosts <= 1:
+        return None
+    second = max(cfg.model_parallel, cfg.seq_parallel, 1)
+    cards = (torch.cuda.device_count()
+             if torch.device(cfg.device).type == "cuda" else 1)
+    world = cfg.data_parallel or hosts * max(cards // second, 1)
+    if world < 1 or world % hosts:
+        raise SystemExit(f"--data-parallel {world} must be a positive "
+                         f"multiple of --num-hosts {hosts}")
+    if hosts > 1 and not cfg.coordinator:
+        raise SystemExit(f"--num-hosts {hosts} needs --coordinator "
+                         "host:port (where host 0 listens)")
+    global_batch = cfg.batch_size * hosts
+    if global_batch % world:
+        raise SystemExit(
+            f"--batch-size {cfg.batch_size} × {hosts} hosts = global batch "
+            f"{global_batch} must be divisible by the data-parallel axis "
+            f"({world} ranks)"
+        )
+    check_seq_flags(cfg, rank_batch=global_batch // world)
+    local = world // hosts
+    if hosts > 1:
+        coordinator = cfg.coordinator
+    else:
+        coordinator = f"127.0.0.1:{free_port()}" if world > 1 else None
+    # hosts that meet at a loopback address are processes of this machine,
+    # and a rank's cards follow its local rank, so the hosts' ranks share
+    # cards: NCCL would refuse them
+    one_machine = hosts > 1 and coordinator.rsplit(":", 1)[0] in LOOPBACK
+    backend = ("gloo" if one_machine
+               else pick_backend(cfg.device, local, second))
+    return RankPlan(world=world, hosts=hosts, host_id=cfg.host_id,
+                    local_ranks=local, second=second, backend=backend,
+                    coordinator=coordinator)
+
+
+def run_rank(local_rank: int, cfg, plan: RankPlan):
+    """One rank of a data-parallel run: join the process group, build the
+    mesh, run, and leave the group, on an error too (so the other ranks
+    see it rather than wait)."""
+    import torch.distributed as dist
+
+    from ctc_tpu_torch.parallel.mesh import (
+        init_distributed,
+        init_single_rank,
+        make_mesh,
+        rank_devices,
+    )
+
+    rank = plan.host_id * plan.local_ranks + local_rank
+    device = rank_devices(cfg.device, local_rank, plan.second)[0]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if plan.world == 1:
+        init_single_rank(plan.backend)
+    else:
+        init_distributed(plan.coordinator, plan.world, rank,
+                         backend=plan.backend)
+    try:
+        mesh = make_mesh(plan.world, model=max(cfg.model_parallel, 1),
+                         seq=max(cfg.seq_parallel, 1), device=cfg.device,
+                         hosts=plan.hosts)
+        return run(cfg, device, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def check_decode_flags(cfg) -> None:
@@ -184,11 +298,33 @@ def check_decode_flags(cfg) -> None:
 def main(argv=None):
     cfg = config_lib.parse(argv)
     config_lib.reject_unported(cfg)
-    check_seq_flags(cfg)
     check_decode_flags(cfg)
     device = resolve_device(cfg.device)
-    Tee(os.path.join(cfg.cache, "log.txt"))
+    plan = plan_ranks(cfg)
+    if plan is None:
+        check_seq_flags(cfg)
+        return run(cfg, device)
+    if plan.local_ranks == 1:
+        return run_rank(0, cfg, plan)
+    from ctc_tpu_torch.parallel.launch import spawn_ranks
+
+    return spawn_ranks(run_rank, (cfg, plan), plan.local_ranks)[0]
+
+
+def run(cfg, device, mesh=None):
+    """The run of one process, on ``device``; with ``mesh`` one rank of a
+    data-parallel run (its metrics or history are every rank's)."""
+    writer = mesh is None or mesh.is_writer
+    if writer:
+        Tee(os.path.join(cfg.cache, "log.txt"))
     print(f"config: {cfg}")
+    if mesh is not None:
+        second = [f"{ax}={n}" for ax, n in mesh.shape.items()
+                  if ax != "data" and n > 1]
+        print(f"data-parallel: {mesh.data}-way mesh"
+              + (f" × {' '.join(second)}" if second else "")
+              + f" ({mesh.hosts} hosts, {mesh.data} ranks, backend "
+                f"{mesh.backend})")
     seed_everything(cfg.manual_seed)
 
     train_batches, val_batches = get_dataset(cfg)
@@ -219,6 +355,8 @@ def main(argv=None):
         steps_per_dispatch=cfg.steps_per_dispatch,
         transition_metrics=cfg.transition_metrics,
         joint_object_weight=cfg.joint_object_weight,
+        mesh=mesh,
+        model_parallel=cfg.model_parallel,
     )
     state = trainer.init_state()
     start_epoch = cfg.start_epoch
@@ -226,6 +364,10 @@ def main(argv=None):
         from ctc_tpu_torch.train import checkpoints as ckpt
 
         state, epoch, score = ckpt.load(cfg.resume, state)
+        if mesh is not None:
+            from ctc_tpu_torch.parallel import replicate
+
+            replicate(state, mesh)
         if epoch >= 0:
             start_epoch = epoch + 1
             print(f"resumed epoch {epoch} (score {score:.4f})")
@@ -235,14 +377,19 @@ def main(argv=None):
     if cfg.evaluate:
         metrics = trainer.validate(state, val_batches, epoch=start_epoch)
         print(f"evaluate: {metrics}")
+        if not writer:
+            # decode and the video evals run no collective: rank 0's
+            return metrics
         if cfg.decode:
             # decoded transition paths per val window (blank collapse only
             # for the blank loss)
             from ctc_tpu_torch.eval.video import decode_windows
             from ctc_tpu_torch.parallel import make_seq_mesh
 
-            seq_mesh = (make_seq_mesh(cfg.seq_parallel, device)
-                        if cfg.seq_parallel > 1 else None)
+            seq_mesh = None
+            if cfg.seq_parallel > 1:
+                seq_mesh = (mesh if mesh is not None and "seq" in mesh.shape
+                            else make_seq_mesh(cfg.seq_parallel, device))
             out_csv = os.path.join(cfg.cache, "decoded_predictions.csv")
             dec = decode_windows(
                 model, val_batches,
@@ -277,7 +424,7 @@ def main(argv=None):
         return metrics
 
     video_eval = None
-    if cfg.video_eval:
+    if cfg.video_eval and writer:  # no collective: rank 0 scores
         try:
             video_eval = make_video_eval(cfg)
         except Exception as e:

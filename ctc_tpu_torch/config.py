@@ -125,10 +125,6 @@ class Config:
 
 #: (flag, predicate on the config, ROADMAP item that ports it)
 UNPORTED = (
-    ("--data-parallel", lambda c: c.data_parallel is not None,
-     "Queue 1 item 14"),
-    ("--model-parallel", lambda c: c.model_parallel > 1, "Queue 1 item 14"),
-    ("--num-hosts", lambda c: c.num_hosts > 1, "Queue 1 item 14"),
     ("--compute-dtype bf16", lambda c: c.compute_dtype != "f32",
      "Queue 1 item 16"),
     ("a *_pixels dataset", lambda c: c.dataset.endswith("_pixels"),

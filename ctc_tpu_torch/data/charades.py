@@ -354,6 +354,10 @@ def cached_prepare(cache_dir, split, *args, **kwargs):
         with open(cachefile, "rb") as f:
             return pickle.load(f)
     res = prepare_windows(*args, split=split, **kwargs)
-    with open(cachefile, "wb") as f:
+    # renamed into place: the ranks of a data-parallel run on one host
+    # may prepare the split at once, and none may read a partial file
+    tmp = f"{cachefile}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         pickle.dump(res, f)
+    os.replace(tmp, cachefile)
     return res

@@ -1,9 +1,9 @@
 """Shared split pipeline for the Charades-variant registry loaders (port of
-``ctc_tpu/data/loaders/_common.py``, one process).
+``ctc_tpu/data/loaders/_common.py``).
 
 Every variant loader runs the same skeleton: parse CSV -> frame counts ->
 variant ``prepare`` -> cached I3D features (``--features-dir``) ->
-per-process index batches -> variant collate.  Only the prepare function,
+per-host index batches -> variant collate.  Only the prepare function,
 the feature file's key and the collate differ per variant.
 """
 
@@ -41,9 +41,11 @@ def split_features(cfg, data, cache_key: str, split: str) -> np.ndarray:
 
 
 def _index_batches(cfg, n: int, split: str) -> list:
-    # one process until the process group lands (ROADMAP Queue 1 item 14)
+    # this host's strided share (--host-id of --num-hosts): ctc_tpu's
+    # jax.process_index() of jax.process_count()
     return host_shard_indices(
-        n, cfg.batch_size, process_index=0, process_count=1,
+        n, cfg.batch_size, process_index=cfg.host_id,
+        process_count=cfg.num_hosts,
         shuffle=(split == "train"), seed=cfg.manual_seed,
     )
 

@@ -1,5 +1,4 @@
-"""Synthetic dataset loader (port of ``ctc_tpu/data/loaders/synthetic.py``,
-single host).
+"""Synthetic dataset loader (port of ``ctc_tpu/data/loaders/synthetic.py``).
 
 Follows the CLI's head-width convention: verb-index lattices (v_class),
 multi-hot object spaces (o_class), combined blank-CTC classes (c_class).
@@ -38,7 +37,14 @@ def _final_step_batches(batches, loss: str):
 
 def get(cfg):
     """``(train_batches, val_batches)``: 8 and 2 seeded batches of
-    ``cfg.batch_size``."""
+    ``cfg.batch_size`` rows.
+
+    ``cfg.batch_size`` is the batch of one host: with ``--num-hosts H``
+    every host draws the same seeded global batches of ``H *
+    batch_size`` rows and keeps its own contiguous row block (host
+    ``--host-id``), so an H-host run reproduces the one-host run at batch
+    ``H * batch_size``."""
+    hosts = cfg.num_hosts
     temporal = max(cfg.temporal, 2)
     # Blank CTC feasibility: a drawn label can equal 0 (the blank id), and
     # the skip rule (z[s] != blank) forces such a label through the blank
@@ -48,7 +54,7 @@ def get(cfg):
     # sentinel-scale NLL.  max(.., 1), not 2: at temporal 2-3 a 2-label
     # path would break L <= T/2 again.
     common = dict(
-        batch_size=cfg.batch_size,
+        batch_size=cfg.batch_size * hosts,
         temporal=temporal,
         max_path=(max(temporal // 2, 1) if cfg.loss == "blank" else None),
         feat_dim=cfg.extract_feat_dim,
@@ -68,6 +74,14 @@ def get(cfg):
     elif cfg.loss == "joint":
         train = pack_joint_batches(train, cfg.o_class)
         val = pack_joint_batches(val, cfg.o_class)
+    if hosts > 1:
+        lo = cfg.host_id * cfg.batch_size
+        hi = lo + cfg.batch_size
+
+        def local(batches):
+            return [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+
+        train, val = local(train), local(val)
     return train, val
 
 

@@ -188,7 +188,7 @@ def decode_windows(model, batches, *, blank: int = -1,
         losses) collapses repeats only.
       out_csv: optional path, one row per window: ``batch, index, length,
         path`` (space-joined class indices).
-      seq_mesh: a :class:`ctc_tpu_torch.parallel.SeqMesh`: decode runs
+      seq_mesh: a :class:`ctc_tpu_torch.parallel.Mesh` of ``seq`` shards: decode runs
         T-sharded, each shard taking the previous shard's last frame label
         as its boundary
         (:func:`ctc_tpu_torch.parallel.make_seq_sharded_greedy_decode`).

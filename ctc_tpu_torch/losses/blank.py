@@ -34,6 +34,26 @@ def _expand_targets(targets: torch.Tensor, blank: int) -> torch.Tensor:
     return z
 
 
+class _GatherSlots(torch.autograd.Function):
+    """``scores[t, b, z[b, s]]``, whose backward sums each class's slots as
+    a one-hot product, in a fixed order.  (``torch.gather``'s own backward
+    adds the repeated indices, the blank's above all, by atomics on the
+    card, in no fixed order, so two runs of a step would differ.)"""
+
+    @staticmethod
+    def forward(ctx, scores, z):
+        ctx.save_for_backward(z)
+        ctx.classes = scores.shape[2]
+        return torch.gather(scores, 2, z[None].expand(scores.shape[0], -1,
+                                                      -1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (z,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(z, ctx.classes).to(grad.dtype)
+        return torch.einsum("tbs,bsc->tbc", grad, onehot), None
+
+
 def blank_emissions_and_skip(scores, targets, blank, *, normalize=False):
     """Gathered emissions ``[T, B, S]`` over the blank-expanded sequence and
     the ``[B, S]`` skip-permission mask.
@@ -49,14 +69,14 @@ def blank_emissions_and_skip(scores, targets, blank, *, normalize=False):
     A skip may enter slot ``s`` when ``s >= 2``, ``z[s] != blank`` and
     ``z[s] != z[s-2]``: a label equal to the blank id is never skipped into.
     """
-    max_t, batch, num_classes = scores.shape
+    _, batch, num_classes = scores.shape
     z = _expand_targets(torch.remainder(targets.long(), num_classes), blank)
     z_prev2 = torch.cat(
         [torch.full((batch, 2), blank, dtype=z.dtype, device=z.device),
          z[:, :-2]], dim=1)
     s_idx = torch.arange(z.shape[1], device=z.device)[None, :]
     skip_ok = (s_idx >= 2) & (z != blank) & (z != z_prev2)
-    em = torch.gather(scores, 2, z[None].expand(max_t, -1, -1))  # [T, B, S]
+    em = _GatherSlots.apply(scores, z)  # [T, B, S]
     if normalize:
         em = em - torch.logsumexp(scores, dim=2)[:, :, None]
     return em, skip_ok

@@ -1,7 +1,9 @@
 """LSTM head over I3D clip features (port of ``ctc_tpu/models/lstm.py``).
 
 * The feature projection, BatchNorm, ReLU and Dropout run over all
-  timesteps at once; BatchNorm keeps per-timestep batch statistics.
+  timesteps at once; BatchNorm keeps per-timestep batch statistics, taken
+  over every rank's rows when a process group syncs it (JAX's
+  ``bn_axis_name``).
 * The recurrence is a fused-gate LSTM cell whose input-to-gates product for
   all T is one matmul; gate order is i, f, g, o (torch.nn.LSTMCell).
 * Parameters start as flax's do: ``lecun_normal`` kernels, zero biases.
@@ -13,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from ctc_tpu_torch.parallel.collectives import pmean, world_size
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -45,13 +49,20 @@ class TemporalBatchNorm(nn.Module):
     once per call with the mean over T of the per-t statistics, the variance
     made unbiased by B / (B - 1), momentum 0.1 — the JAX package's rule, not
     ``nn.BatchNorm1d``'s.
+
+    ``group`` (a process group, or None) makes it sync BatchNorm: the mean
+    and the variance are pmean'd over the group's ranks, each rank holding
+    an equal share of the batch, and B counts every rank's rows.  Their
+    backward sums the cotangents over the ranks, as JAX's transpose of
+    ``pmean`` does.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, group=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -59,10 +70,11 @@ class TemporalBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
         if train:
-            mean = x.mean(dim=1, keepdim=True)  # [T, 1, F]
-            var = (x - mean).square().mean(dim=1, keepdim=True)
+            mean = pmean(x.mean(dim=1, keepdim=True), self.group)  # [T,1,F]
+            var = pmean((x - mean).square().mean(dim=1, keepdim=True),
+                        self.group)
             with torch.no_grad():
-                batch = float(x.shape[1])
+                batch = float(x.shape[1] * world_size(self.group))
                 unbiased = var * (batch / max(batch - 1.0, 1.0))
                 m = self.momentum
                 self.running_mean.copy_(
@@ -75,6 +87,15 @@ class TemporalBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * inv * self.weight + self.bias
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Make every :class:`TemporalBatchNorm` of ``model`` sync over
+    ``group`` (None: each rank's own rows); returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, TemporalBatchNorm):
+            m.group = group
+    return model
 
 
 class FeatureHead(nn.Module):
@@ -99,6 +120,7 @@ class LSTMHead(nn.Module):
 
     Input ``[T, B, in_features]`` clip features; output ``[T, B, hidden]``
     hidden states (the per-class logits the losses read).
+    :func:`sync_batch_norm` syncs its BatchNorm over a process group.
     """
 
     def __init__(self, in_features: int, hidden: int,

@@ -24,6 +24,10 @@ so the loop here is over microbatches and then over shards, and there is no
 fill or drain bubble to amortize.  The count still sets the batch of each
 kernel launch.
 
+With ``batch_axis`` (the data x seq composition) each rank of the mesh's
+data axis runs its own pipeline over its rows on its row of devices, and
+the loss's mean is pmean'd over the ranks; nothing else crosses ranks.
+
 Also here: :func:`make_seq_sharded_greedy_decode`, greedy decode on
 frame-sharded logits, with the previous shard's last frame label as the
 boundary so that a repeat across a shard boundary collapses.
@@ -45,6 +49,7 @@ from ctc_tpu_torch.ops.emissions import (
 )
 from ctc_tpu_torch.ops.lattice_cuda import noblank_alpha_init
 from ctc_tpu_torch.ops.logspace import BLANK_NEG, NEG_SENTINEL
+from ctc_tpu_torch.parallel.collectives import pmean
 
 MODES = ("noblank", "noblank_logits", "binary", "blank")
 
@@ -119,13 +124,13 @@ def make_seq_sharded_lattice_nll(mesh, *, mode: str = "noblank",
     Each shard's microbatches run the shard ops of
     :mod:`ctc_tpu_torch.ops.dispatch`, chosen by ``implementation`` as the
     unsharded losses choose theirs: the CUDA kernels for CUDA tensors, the
-    plain version for CPU tensors.  ``batch_axis`` (the data x seq
-    composition) is not ported yet.
+    plain version for CPU tensors.  With ``batch_axis`` (the data x seq
+    composition) the inputs are this rank's rows of the batch and so is the
+    NLL; each rank runs its own pipeline.
     """
-    if batch_axis is not None:
-        raise NotImplementedError(
-            "batch_axis (the data x seq composition) is not ported to "
-            "ctc_tpu_torch yet (ROADMAP.md Queue 1 item 14)")
+    if batch_axis is not None and mesh.data is None:
+        raise ValueError(f"batch_axis={batch_axis!r} needs a mesh with a "
+                         f"data axis, got {mesh.shape}")
     if mode not in MODES:
         raise ValueError(f"unknown seq-sharded lattice mode {mode!r}")
 
@@ -187,31 +192,34 @@ def make_seq_sharded_lattice_nll(mesh, *, mode: str = "noblank",
 
 def make_seq_sharded_loss(mesh, loss_kind: str, *,
                           num_microbatches: int | None = None,
-                          blank: int = 0):
+                          blank: int = 0, batch_axis: str | None = None):
     """A drop-in replacement for the :mod:`ctc_tpu_torch.losses` entry
     points with the lattice's T axis pipelined over the mesh's shards (the
     trainer's ``--seq-parallel``).
 
     Same call signature and reductions as the unsharded losses: noblank and
     binary take the batch mean of the NLL; blank takes the mean of the
-    per-sample NLL over ``max(target_length, 1)``.
+    per-sample NLL over ``max(target_length, 1)``.  With ``batch_axis``
+    each rank passes its rows, and the mean over the ranks' equal shares
+    is pmean'd.
     """
     modes = {"noblank": "noblank_logits", "binary": "binary",
              "blank": "blank"}
     if loss_kind not in modes:
         raise ValueError(f"seq_parallel needs a lattice loss, got "
                          f"{loss_kind!r}")
+    group = mesh.group if batch_axis else None
 
     def loss_fn(logits, paths, input_lengths, target_lengths,
                 implementation=None):
         nll = make_seq_sharded_lattice_nll(
             mesh, mode=modes[loss_kind], blank=blank,
-            num_microbatches=num_microbatches,
+            num_microbatches=num_microbatches, batch_axis=batch_axis,
             implementation=implementation,
         )(logits, paths, input_lengths, target_lengths)
         if loss_kind == "blank":
-            return (nll / target_lengths.clamp(min=1).to(nll.dtype)).mean()
-        return nll.mean()
+            nll = nll / target_lengths.clamp(min=1).to(nll.dtype)
+        return pmean(nll.mean(), group)
 
     return loss_fn
 

@@ -27,6 +27,10 @@ Capture, on the card:
 
 The lattice wrappers' launch counters are Python integers: they tick at
 the warm-up's launches and while the steps are captured, not at a replay.
+
+``capture=False`` runs the K steps in turn on the card too: a data-parallel
+step under gloo, whose collectives a graph cannot hold, gives the same
+result that way.
 """
 
 from __future__ import annotations
@@ -108,7 +112,7 @@ class _Captured:
 
 
 def _owner(state):
-    return (state.model, state.optimizer, state.step)
+    return (state.model, state.optimizer, state.step, state.exchange)
 
 
 class MultiStep:
@@ -117,15 +121,20 @@ class MultiStep:
     ``step`` is a train step ``(state, batch, generator) -> (state,
     metrics)`` when ``train``, else an eval step ``(state, batch) ->
     metrics``.  Calling the object with ``(state, group)`` runs the group
-    and returns its metrics as ``{key: [K]}`` tensors on the device."""
+    and returns its metrics as ``{key: [K]}`` tensors on the device.
+    ``capture`` (default: on a CUDA device) makes the group one CUDA
+    graph; without it the K steps run in turn."""
 
     def __init__(self, step, k: int, *, train: bool, device,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 capture: bool | None = None):
         self.step = step
         self.k = k
         self.train = train
         self.device = torch.device(device)
         self.generator = generator
+        self.capture = (self.device.type == "cuda" if capture is None
+                        else capture)
         self._captured: dict[tuple, _Captured] = {}
 
     def body(self, state, inputs) -> dict:
@@ -144,7 +153,7 @@ class MultiStep:
         if len(group) != self.k:
             raise ValueError(f"a group holds {self.k} batches, got "
                              f"{len(group)}")
-        if self.device.type != "cuda":
+        if not self.capture:
             return self.body(state, stack_group(group, self.device))
         sig = signature(group[0])
         cap = self._captured.get(sig)

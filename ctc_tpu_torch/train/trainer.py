@@ -1,6 +1,8 @@
 """Training engine: train/eval steps and an epoch-loop Trainer (port of
-``ctc_tpu/train/trainer.py``: one device, or the lattice's T axis split
-into ``seq_parallel`` shards).
+``ctc_tpu/train/trainer.py``: one device; the lattice's T axis split into
+``seq_parallel`` shards or the binary loss's class axis into
+``model_parallel`` shards; and a mesh whose data axis is the ranks of a
+process group, :mod:`ctc_tpu_torch.parallel`).
 
 * The optimizer is :class:`ctc_tpu_torch.train.optim.TorchStyleAdam`:
   Adam with ``weight_decay`` as L2 added to the gradient (optax's
@@ -16,9 +18,11 @@ into ``seq_parallel`` shards).
   as one unit (:mod:`ctc_tpu_torch.train.graphs`): one CUDA graph replay
   on the card; the sub-K remainder and groups of unequal shapes run single
   steps.
-* Dropout draws its masks from the trainer's own ``torch.Generator``.
+* Dropout draws its masks from the trainer's own ``torch.Generator``
+  (on a data mesh, seeded apart on each rank).
 * Everything runs on one explicit device, ``cuda`` unless the caller asks
-  for the CPU; asking for CUDA without a card raises.
+  for the CPU (on a mesh, the first device of the rank's row); asking for
+  CUDA without a card raises.
 """
 
 from __future__ import annotations
@@ -69,11 +73,14 @@ def resolve_device(device) -> torch.device:
 class TrainState:
     """Model + optimizer + the count of batches trained so far (``ctc_tpu``'s
     ``TrainState.step``), a 0-d int64 tensor on the model's device that the
-    train step moves in place."""
+    train step moves in place.  A state replicated over a mesh's data axis
+    (:func:`ctc_tpu_torch.parallel.replicate`) carries its gradient
+    ``exchange``, which the train step all-reduces through."""
 
     model: torch.nn.Module
     optimizer: TorchStyleAdam | None
     step: torch.Tensor | int = 0
+    exchange: object = None
 
     def __post_init__(self):
         if not isinstance(self.step, torch.Tensor):
@@ -131,13 +138,17 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
     The step decides nothing on the host and reads nothing back, so the
     same function runs eagerly and inside a captured CUDA graph
     (:mod:`ctc_tpu_torch.train.graphs`).  Its metrics are 0-d tensors:
-    ``loss``, ``top1``, ``top5`` and the optimizer's guard metrics.
+    ``loss``, ``top1``, ``top5`` and the optimizer's guard metrics.  With a
+    replicated state the gradient, the BatchNorm statistics and the loss,
+    top-1 and top-5 are pmean'd over the ranks before the update.
     """
     loss_fn = loss_fn or losses.LOSS_FNS[loss_kind]
 
     def train_step(state: TrainState, batch, generator=None):
-        model, opt = state.model, state.optimizer
+        model, opt, exchange = state.model, state.optimizer, state.exchange
         opt.begin(state.step)
+        if exchange is not None:
+            exchange.begin()
         logits = model(_model_input(batch["feats"]), train=True,
                        generator=generator)  # [T, B, C]
         loss = loss_fn(logits, batch["paths"], batch["input_lengths"],
@@ -149,16 +160,19 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
                 batch["future_target"],
             )
         loss.backward()
-        lr = 0.0 if schedule is None else schedule(opt.count)
-        guards = opt.step(state.step, lr)
+        loss = loss.detach()
         with torch.no_grad():
-            state.step.add_(1)
             (top1, top5), _ = topk_accuracy(
                 _head_logits(logits[-1], batch, loss_kind),
                 batch["future_target"], topk=(1, 5)
             )
-        return state, {"loss": loss.detach(), "top1": top1, "top5": top5,
-                       **guards}
+        if exchange is not None:
+            loss, top1, top5 = exchange.finish(loss, top1, top5)
+        lr = 0.0 if schedule is None else schedule(opt.count)
+        guards = opt.step(state.step, lr)
+        with torch.no_grad():
+            state.step.add_(1)
+        return state, {"loss": loss, "top1": top1, "top5": top5, **guards}
 
     return train_step
 
@@ -198,6 +212,14 @@ def make_eval_step(loss_kind: str = "noblank", implementation=None,
     return eval_step
 
 
+def _check_axis(mesh, axis: str, size: int) -> None:
+    if mesh.shape.get(axis, 1) != size:
+        raise ValueError(
+            f"mesh {mesh.shape} lacks a {axis!r} axis of size {size} — "
+            f"build it with make_mesh(data=..., {axis}=...)"
+        )
+
+
 class Trainer:
     """Epoch-loop runner with meters, CSV logs and checkpointing.
 
@@ -208,7 +230,18 @@ class Trainer:
     ``seq_parallel`` > 1 splits the lattice's T axis into that many shards
     on the trainer's device (:func:`ctc_tpu_torch.parallel.make_seq_mesh`)
     and trains and evaluates through the sequence-sharded loss, with the
-    batch split into ``seq_microbatches`` (default ``seq_parallel``).
+    batch split into ``seq_microbatches`` (default ``seq_parallel``);
+    ``model_parallel`` > 1 splits the binary loss's class axis into that
+    many shards instead.
+
+    ``mesh`` (:func:`ctc_tpu_torch.parallel.make_mesh`, on every rank of
+    its process group) trains data-parallel: each rank takes its rows of
+    every host batch (:func:`ctc_tpu_torch.parallel.shard_batch`), the
+    BatchNorm syncs over the ranks and the train step pmeans the gradient
+    and the metrics.  A mesh whose second axis is ``seq`` or ``model``
+    composes: the loss shards that axis over the rank's row of devices,
+    which ``seq_parallel`` / ``model_parallel`` must name.  Only rank 0
+    writes the CSV logs and the checkpoints; every rank reads them.
 
     ``transition_metrics`` adds the eval step's DTW transition metrics;
     ``joint_object_weight`` scales the joint loss's object term.
@@ -248,8 +281,13 @@ class Trainer:
         steps_per_dispatch: int = 1,
         transition_metrics: bool = False,
         joint_object_weight: float = 1.0,
+        mesh=None,
+        model_parallel: int = 1,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None
+                                     else device)
+        self.writer = mesh is None or mesh.is_writer
         self.model = model
         self.weight_decay = weight_decay
         # the schedule advances once per optimizer update: subsampling
@@ -266,6 +304,31 @@ class Trainer:
         if loss_kind == "joint" and joint_object_weight != 1.0:
             loss_fn = partial(losses.joint_ov_ctc_loss,
                               object_weight=joint_object_weight)
+        if model_parallel > 1 and seq_parallel > 1:
+            raise ValueError(
+                "model_parallel and seq_parallel cannot be combined — the "
+                "class axis and the T pipeline shard the same lattice"
+            )
+        if model_parallel > 1:
+            if loss_kind != "binary":
+                raise ValueError(
+                    "model_parallel shards the binary loss's class axis; "
+                    f"got loss {loss_kind!r}"
+                )
+            from ctc_tpu_torch.parallel import (
+                make_class_sharded_binary_loss,
+                make_local_mesh,
+            )
+
+            if mesh is not None:
+                # data x model: batches over the ranks, the class axis over
+                # each rank's row of devices
+                _check_axis(mesh, "model", model_parallel)
+                loss_fn = make_class_sharded_binary_loss(mesh,
+                                                         batch_axis="data")
+            else:
+                loss_fn = make_class_sharded_binary_loss(
+                    make_local_mesh("model", model_parallel, self.device))
         if seq_parallel > 1:
             if loss_kind not in ("noblank", "binary", "blank"):
                 raise ValueError(
@@ -276,35 +339,67 @@ class Trainer:
                 make_seq_sharded_loss,
             )
 
-            loss_fn = make_seq_sharded_loss(
-                make_seq_mesh(seq_parallel, self.device), loss_kind,
-                num_microbatches=(seq_microbatches or None),
-            )
-        self.train_step = make_train_step(loss_kind, implementation,
-                                          ce_weight, self.schedule,
-                                          loss_fn=loss_fn)
-        self.eval_step = make_eval_step(loss_kind, implementation,
-                                        loss_fn=loss_fn,
-                                        transition_metrics=transition_metrics)
+            if mesh is not None:
+                # data x seq: one T pipeline a rank over its rows
+                _check_axis(mesh, "seq", seq_parallel)
+                loss_fn = make_seq_sharded_loss(
+                    mesh, loss_kind,
+                    num_microbatches=(seq_microbatches or None),
+                    batch_axis="data",
+                )
+            else:
+                loss_fn = make_seq_sharded_loss(
+                    make_seq_mesh(seq_parallel, self.device), loss_kind,
+                    num_microbatches=(seq_microbatches or None),
+                )
+        k = self.steps_per_dispatch = max(steps_per_dispatch, 1)
+        # dropout masks; on the model's device so bernoulli_ can use it.
+        # Each rank draws its own (JAX folds the shard index into the key)
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(
+            seed + (mesh.rank << 32 if mesh is not None else 0))
+        if mesh is not None:
+            from ctc_tpu_torch.parallel import steps as psteps
+
+            self.train_step = psteps.make_sharded_train_step(
+                model, mesh, loss_kind, implementation, ce_weight,
+                self.schedule, loss_fn=loss_fn)
+            self.eval_step = psteps.make_sharded_eval_step(
+                model, mesh, loss_kind, implementation, transition_metrics,
+                loss_fn=loss_fn)
+            if k > 1:
+                self.multi_step = psteps.make_sharded_multi_train_step(
+                    model, mesh, loss_kind, implementation, ce_weight,
+                    self.schedule, loss_fn, k=k, generator=self.generator)
+                self.multi_eval_step = psteps.make_sharded_multi_eval_step(
+                    model, mesh, loss_kind, implementation,
+                    transition_metrics, loss_fn, k=k)
+                if (self.device.type == "cuda" and self.writer
+                        and not self.multi_step.capture):
+                    print(f"steps-per-dispatch {k}: {mesh.backend} "
+                          "collectives cannot be captured in a CUDA graph; "
+                          f"each group's {k} steps run in turn")
+        else:
+            self.train_step = make_train_step(loss_kind, implementation,
+                                              ce_weight, self.schedule,
+                                              loss_fn=loss_fn)
+            self.eval_step = make_eval_step(
+                loss_kind, implementation, loss_fn=loss_fn,
+                transition_metrics=transition_metrics)
+            if k > 1:
+                self.multi_step = MultiStep(self.train_step, k, train=True,
+                                            device=self.device,
+                                            generator=self.generator)
+                self.multi_eval_step = MultiStep(self.eval_step, k,
+                                                 train=False,
+                                                 device=self.device)
         self.cache_dir = cache_dir
         self.print_freq = print_freq
         self.print_test_freq = (print_freq if print_test_freq is None
                                 else print_test_freq)
         self.train_size = train_size
         self.val_size = val_size
-        self.seed = seed
-        # dropout masks; on the model's device so bernoulli_ can use it
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
-        self.steps_per_dispatch = max(steps_per_dispatch, 1)
-        if self.steps_per_dispatch > 1:
-            self.multi_step = MultiStep(self.train_step,
-                                        self.steps_per_dispatch, train=True,
-                                        device=self.device,
-                                        generator=self.generator)
-            self.multi_eval_step = MultiStep(self.eval_step,
-                                             self.steps_per_dispatch,
-                                             train=False, device=self.device)
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
 
@@ -322,7 +417,20 @@ class Trainer:
         self.model.to(self.device)
         opt = torch_style_adam(self.model.parameters(), self.weight_decay,
                                **self.chain)
-        return TrainState(model=self.model, optimizer=opt)
+        state = TrainState(model=self.model, optimizer=opt)
+        if self.mesh is not None:
+            from ctc_tpu_torch.parallel import replicate
+
+            state = replicate(state, self.mesh)
+        return state
+
+    def _place(self, batch):
+        """This rank's rows of a host batch (all of it without a mesh)."""
+        if self.mesh is None:
+            return batch
+        from ctc_tpu_torch.parallel import shard_batch
+
+        return shard_batch(batch, self.mesh)
 
     @staticmethod
     def _uniform_shapes(group) -> bool:
@@ -351,6 +459,7 @@ class Trainer:
         A full group of equal shapes is one unit (one graph replay on the
         card); otherwise each batch is a single step."""
         k = self.steps_per_dispatch
+        group = [self._place(b) for b in group]
         if k > 1 and len(group) == k and self._uniform_shapes(group):
             multi = self.multi_step if train else self.multi_eval_step
             return host_rows(multi(state, group))
@@ -365,7 +474,7 @@ class Trainer:
         return host_rows(stack_metrics(rows))
 
     def _csv_writer(self, name):
-        if not self.cache_dir:
+        if not (self.cache_dir and self.writer):
             return None
         f = open(os.path.join(self.cache_dir, name), "a", newline="")
         return f, csv.writer(f)
@@ -448,7 +557,11 @@ class Trainer:
         ``profile_dir``: a ``torch.profiler`` trace of the first trained
         epoch, written into that directory as a ``*.json`` file
         (:func:`ctc_tpu_torch.utils.profiling.trace`); an epoch that
-        crashes leaves its trace and the retry is traced again."""
+        crashes leaves its trace and the retry is traced again.
+
+        On a data mesh, rank 0 writes the score log, the checkpoints and
+        the trace, and every rank waits for each checkpoint, so a restart
+        restores every rank from the same one."""
         from ctc_tpu_torch.train import checkpoints as ckpt
 
         if state is None:
@@ -462,7 +575,7 @@ class Trainer:
         try:
             while epoch < epochs:
                 try:
-                    if profile_dir and not traced:
+                    if profile_dir and not traced and self.writer:
                         from ctc_tpu_torch.utils.profiling import trace
 
                         ctx = trace(profile_dir,
@@ -498,8 +611,11 @@ class Trainer:
                     score = val_metrics.get("mAP", val_metrics["top1"])
                     is_best = score > best
                     best = max(best, score)
-                    ckpt.save(self.cache_dir, state, epoch, score=score,
-                              is_best=is_best)
+                    if self.writer:
+                        ckpt.save(self.cache_dir, state, epoch, score=score,
+                                  is_best=is_best)
+                    if self.mesh is not None:
+                        self.mesh.barrier()
                 epoch += 1
         finally:
             if score_log:

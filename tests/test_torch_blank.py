@@ -194,6 +194,25 @@ def test_emissions_and_skip_match_jax():
         z.numpy(), np.asarray(jblank._expand_targets(jnp.asarray(targets), 0)))
 
 
+def test_emission_gather_gradient_is_torch_gathers():
+    """The gather's one-hot backward (a fixed summation order) gives
+    ``torch.gather``'s gradient: each class gets the sum of its slots'
+    cotangents, the blank's L + 1 slots and repeated labels included."""
+    rng = np.random.default_rng(23)
+    logits, targets, _, _, _ = _case(rng, "repeats")
+    cot = torch.tensor(rng.standard_normal(
+        (logits.shape[0], targets.shape[0], 2 * targets.shape[1] + 1)
+    ).astype(np.float32))
+    x = torch.tensor(logits, requires_grad=True)
+    em, _ = tblank.blank_emissions_and_skip(x, torch.tensor(targets), 0)
+    em.backward(cot)
+    y = torch.tensor(logits, requires_grad=True)
+    z = tblank._expand_targets(torch.tensor(targets).long(), 0)
+    torch.gather(y, 2, z[None].expand(y.shape[0], -1, -1)).backward(cot)
+    np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 def _lattice_case(rng, T, B, L, C=12):
     """Normalized gathered emissions, the skip mask, lengths and a
     cotangent, from random logits and labels (repeats and a blank label
@@ -366,3 +385,19 @@ def test_ctc_loss_on_card_matches_cpu(cuda_device):
     (v_c, g_c), (v_g, g_g) = got["cpu"], got["cuda"]
     np.testing.assert_allclose(v_g, v_c, **LOSS_TOL)
     np.testing.assert_allclose(g_g, g_c, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_ctc_loss_gradient_repeats_on_card(cuda_device):
+    """Two backwards of the loss on the card give the same gradient bit
+    for bit (no atomics in the emission gather's backward)."""
+    rng = np.random.default_rng(29)
+    logits, targets, in_len, tgt_len, _ = _case(rng, "repeats")
+    grads = []
+    for _ in range(2):
+        x = torch.tensor(logits).to(cuda_device).requires_grad_()
+        tblank.ctc_loss(x, torch.tensor(targets).to(cuda_device),
+                        torch.tensor(in_len).to(cuda_device),
+                        torch.tensor(tgt_len).to(cuda_device)).backward()
+        grads.append(x.grad.cpu().numpy())
+    np.testing.assert_array_equal(grads[0], grads[1])

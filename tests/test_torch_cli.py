@@ -6,7 +6,14 @@ trainer flags as ctc_tpu's CLI does, and refuses every flag whose code is
 not ported; ``--evaluate`` prints the video mAP, reads
 ``--groundtruth-lookup`` and writes the ``--my-dataset`` predictions."""
 
+import ast
 import csv
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -116,10 +123,6 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--data-parallel", "2"], "item 14"),
-        (["--model-parallel", "2"], "item 14"),
-        (["--seq-parallel", "2", "--data-parallel", "2"], "item 14"),
-        (["--num-hosts", "2"], "item 14"),
         (["--compute-dtype", "bf16"], "item 16"),
         (["--dataset", "charades_pixels"], "item 12"),
         pytest.param(["--dataset", "charades_ctc_next_pred"], "item 12",
@@ -336,3 +339,180 @@ def test_evaluate_own_video_with_frames_names_item_12(tmp_path, capsys):
     assert "own-video eval skipped:" in out and "item 12" in out
     assert np.isfinite(metrics["video_mAP"])
     assert not (tmp_path / "run" / "test" / "myvideo_predictions.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# the data axis: --data-parallel, --num-hosts, --model-parallel
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DP = ["--dataset", "synthetic", "--extract-feat-dim", "16",
+      "--temporal", "4", "--dropout", "0", "--print-train-freq", "100",
+      "--print-test-freq", "100", "--device", "cpu"]
+BIAS_CARRIERS = ("feature_head.proj.bias", "feature_head.bn.running_mean")
+CLI_TIMEOUT = 120  # seconds, one CLI process and the ranks it starts
+
+
+def _cli(argv):
+    """``python -m ctc_tpu_torch.cli.main argv`` in a process group of its
+    own, so that on overrun it is ended with every rank it started; its
+    output."""
+    return _wait([_start(argv)])[0]
+
+
+def _start(argv):
+    return subprocess.Popen(
+        [sys.executable, "-m", "ctc_tpu_torch.cli.main", *argv], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+
+
+def _wait(procs):
+    deadline = time.monotonic() + CLI_TIMEOUT
+    outs = []
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+            pytest.fail(f"the CLI ran past {CLI_TIMEOUT} s:\n{out}")
+        assert proc.returncode == 0, out
+        outs.append(out)
+    return outs
+
+
+def _final_weights(run_dir):
+    last = max(int(p.stem) for p in (run_dir / "ckpt").glob("*.pt"))
+    payload = torch.load(run_dir / "ckpt" / f"{last}.pt", weights_only=True)
+    return {k: v.numpy() for k, v in payload["model"].items()}
+
+
+def _assert_weights_close(got, want, updates, label):
+    """rtol 1e-5 / atol 1e-6; the zero-gradient bias and the running mean
+    that carries it at 2 lr an update (``tests/torch_trainer_pair.py``)."""
+    for name, w in want.items():
+        tol = (dict(rtol=0, atol=2 * 1e-3 * updates)
+               if name in BIAS_CARRIERS else dict(rtol=1e-5, atol=1e-6))
+        np.testing.assert_allclose(got[name], np.asarray(w), **tol,
+                                   err_msg=f"{name} {label}")
+
+
+def test_data_parallel_equals_one_rank_and_jax(tmp_path, monkeypatch):
+    """``--data-parallel 2`` (two gloo ranks, batch 8 split 4 + 4) ends with
+    the weights of the one-rank run at batch 8 and of ``ctc_tpu.cli.main
+    --data-parallel 2``, all three from ctc_tpu's initial weights (a
+    checkpoint of them, resumed), 16 steps."""
+    from ctc_tpu.train import Trainer as JaxTrainer
+    from ctc_tpu_torch.models import lstm_head_from_jax
+    from ctc_tpu_torch.train import Trainer
+    from ctc_tpu_torch.train import checkpoints as ckpt
+    from torch_trainer_pair import np_tree
+
+    seen = {}
+    jax_init, jax_fit = JaxTrainer.init_state, JaxTrainer.fit
+
+    def init_keeping(self, batch):
+        state = jax_init(self, batch)
+        seen["init"] = lstm_head_from_jax(np_tree(state.params),
+                                          np_tree(state.batch_stats))
+        return state
+
+    def fit_keeping(self, *args, **kwargs):
+        state, history = jax_fit(self, *args, **kwargs)
+        seen["final"] = lstm_head_from_jax(np_tree(state.params),
+                                           np_tree(state.batch_stats))
+        return state, history
+
+    monkeypatch.setattr(JaxTrainer, "init_state", init_keeping)
+    monkeypatch.setattr(JaxTrainer, "fit", fit_keeping)
+    argv = DP[:-2] + ["--batch-size", "8"]
+    jax_main(argv + ["--epochs", "2", "--data-parallel", "2",
+                     "--lattice-impl", "xla", "--cache-dir",
+                     str(tmp_path / "jax")])
+    init = tmp_path / "init"
+    state = Trainer(LSTMHead(16, 33, dropout_rate=0.0),
+                    device="cpu").init_state(seen["init"])
+    ckpt.save(str(init), state, 0)
+
+    resume = argv + ["--device", "cpu", "--epochs", "3", "--resume",
+                     str(init)]
+    out = _cli(resume + ["--data-parallel", "2",
+                         "--cache-dir", str(tmp_path / "d2")])
+    assert "data-parallel: 2-way mesh (1 hosts, 2 ranks, backend gloo)" in out
+    main(resume + ["--cache-dir", str(tmp_path / "d1")])
+    got = _final_weights(tmp_path / "d2" / "test")
+    _assert_weights_close(got, _final_weights(tmp_path / "d1" / "test"),
+                          16, "vs one rank")
+    _assert_weights_close(got, seen["final"], 16, "vs ctc_tpu")
+
+
+def test_num_hosts_equals_one_process(tmp_path):
+    """Two CLI processes joined by ``--num-hosts 2 --coordinator`` (batch 4
+    a host, groups of 2 steps) train as one process at batch 8: the same
+    score rows and final weights."""
+    from ctc_tpu_torch.parallel.launch import free_port
+
+    coordinator = f"127.0.0.1:{free_port()}"
+    hosts = [_start(DP + ["--batch-size", "4", "--epochs", "2",
+                          "--num-hosts", "2", "--host-id", str(h),
+                          "--coordinator", coordinator,
+                          "--steps-per-dispatch", "2",
+                          "--cache-dir", str(tmp_path / "hosts")])
+             for h in range(2)]
+    outs = _wait(hosts)
+    assert "(2 hosts, 2 ranks, backend gloo)" in outs[0]
+    main(DP + ["--batch-size", "8", "--epochs", "2",
+               "--cache-dir", str(tmp_path / "one")])
+    run, one = tmp_path / "hosts" / "test", tmp_path / "one" / "test"
+    np.testing.assert_allclose(_score_rows(run), _score_rows(one),
+                               rtol=1e-5)
+    _assert_weights_close(_final_weights(run), _final_weights(one), 16,
+                          "two hosts vs one")
+
+
+def test_model_parallel_binary_equals_unsharded(tmp_path):
+    """``--model-parallel 2 --loss binary``: the 38 object classes in 2
+    shards train as the unsharded run."""
+    argv = DP + ["--batch-size", "4", "--epochs", "2", "--loss", "binary"]
+    main(argv + ["--model-parallel", "2",
+                 "--cache-dir", str(tmp_path / "mp")])
+    main(argv + ["--cache-dir", str(tmp_path / "plain")])
+    mp, plain = tmp_path / "mp" / "test", tmp_path / "plain" / "test"
+    np.testing.assert_allclose(_score_rows(mp), _score_rows(plain),
+                               rtol=1e-5)
+    _assert_weights_close(_final_weights(mp), _final_weights(plain), 16,
+                          "model-parallel vs unsharded")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data-parallel", "3"],
+    # 8 rows split into microbatches of 1, but not a rank's 4
+    ["--data-parallel", "2", "--seq-parallel", "2", "--seq-microbatches",
+     "8"],
+], ids=["batch", "seq-microbatches"])
+def test_data_parallel_refuses_a_batch_it_cannot_split(tmp_path, flags):
+    with pytest.raises(SystemExit, match="divisible"):
+        main(DP + ["--batch-size", "8", "--cache-dir", str(tmp_path)]
+             + flags)
+
+
+def test_evaluate_and_decode_under_a_data_seq_mesh(tmp_path):
+    """``--evaluate --decode`` on a 2 x seq 2 mesh gives the one-process
+    seq 2 run's metrics and decoded rows."""
+    argv = DP + ["--batch-size", "8", "--seq-parallel", "2", "--evaluate",
+                 "--decode"]
+    out = _cli(argv + ["--data-parallel", "2",
+                       "--cache-dir", str(tmp_path / "mesh")])
+    line = [ln for ln in out.splitlines() if ln.startswith("evaluate: ")]
+    got = ast.literal_eval(line[-1][len("evaluate: "):])
+    want = main(argv + ["--cache-dir", str(tmp_path / "one")])
+    for key in ("loss", "top1", "top5"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
+    rows = {name: list(csv.reader(open(
+        tmp_path / name / "test" / "decoded_predictions.csv", newline="")))
+        for name in ("mesh", "one")}
+    assert rows["mesh"] == rows["one"] and len(rows["one"]) == 1 + 2 * 8

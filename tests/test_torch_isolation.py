@@ -8,6 +8,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ctc_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax"}
@@ -47,6 +49,22 @@ def test_port_imports_nothing_of_jax_or_ctc_tpu():
     assert not bad, bad
 
 
+# the data axis's modules (ctc_tpu/parallel's port), named so that a module
+# of them that goes missing fails here rather than drops out of the walk
+PARALLEL_MODULES = ("mesh", "collectives", "launch", "steps",
+                    "class_sharded", "seq_lattice")
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_parallel_module_stands_alone(name):
+    """No JAX or ctc_tpu import, and no public function defaulting to the
+    CPU (``make_mesh``, ``init_distributed`` and the launcher included)."""
+    path = PORT / "parallel" / f"{name}.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert not list(_cpu_device_defaults(tree))
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -62,7 +80,7 @@ def test_every_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 76
 
 
 def _cpu_device_defaults(tree):

@@ -336,10 +336,10 @@ def test_pipeline_refusals():
         make_seq_sharded_lattice_nll(mesh, num_microbatches=4)(em, lens, lens)
     with pytest.raises(ValueError, match="divisible"):
         make_seq_sharded_lattice_nll(mesh)(em[:6], lens, lens)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="data axis"):
         make_seq_sharded_lattice_nll(mesh, batch_axis="data")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_mesh(data=2, model=2)
+    with pytest.raises(ValueError, match="one second axis"):
+        make_mesh(data=2, model=2, seq=2, device="cpu")
     with pytest.raises(ValueError, match="lattice loss"):
         make_seq_sharded_loss(mesh, "ce")
 
