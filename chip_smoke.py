@@ -19,7 +19,10 @@ decode; the eval held to the CPU's), runs the one-card trainer features
 of 4), trains over the data axis (two gloo ranks sharing the card against
 one rank, one NCCL rank with its all-reduces in a K-step CUDA graph, four
 class shards, 2 ranks x 4 seq shards, two CLI processes joined by
---num-hosts 2), checks that each run went through its kernels, profiles each train
+--num-hosts 2), runs pixels mode at full width on a corpus of JPEG frames
+(the I3D in every step, frozen, finetuned, chunked and in bf16; feature
+extraction; bf16 on the main path; step times, decode and copy), checks
+that each run went through its kernels, profiles each train
 step eagerly and as a graph and host batches fed plainly and through
 ``device_prefetch``, and times each
 kernel beside its plain version, its bound and, where one exists, the
@@ -930,6 +933,604 @@ def phase_charades(work, card):
               "step_vs_cpu": step, "nvidia_smi": card})
         all_launches[label] = launches
     return all_launches, paths, samples
+
+
+# the pixels phase: the pixels model (the I3D in every step, then the LSTM
+# head and the blank-free CTC loss, rows 1-2) at full width (224 x 224
+# clips of 10 frames, 1024-d features, 33 verbs) and the reference
+# geometry (batch 10, --temporal 10 --gap 2 --num-trans 2), on a
+# Charades-format corpus of decodable JPEG frames (write_corpus(jpeg=True))
+# whose depth is cut to 40 train and 10 val videos: 36 train and 10 val
+# windows, 3 train batches and 1 val batch an epoch
+PIXELS_VIDEOS = (40, 10)
+PIXELS_EPOCHS = 2
+PIXELS_CHUNK = 20
+# (label, flags, epochs): the frozen default run, then one epoch of each
+# variant
+PIXELS_RUNS = (
+    ("frozen", [], PIXELS_EPOCHS),
+    ("finetune", ["--finetune-i3d"], 1),
+    ("chunk", ["--i3d-chunk", str(PIXELS_CHUNK)], 1),
+    ("bf16", ["--compute-dtype", "bf16", "--i3d-act-dtype", "bf16"], 1),
+)
+PIXELS_STAGES = {
+    # a batch's decode and collate, timed in the prefetch thread
+    "batch": [("ctc_tpu_torch.data.loaders._common", "LazyBatches.__getitem__")],
+    "window_decode": [("ctc_tpu_torch.data.loaders.charades_pixels",
+                       "load_window_native")],
+}
+EXTRACT_STAGES = {
+    "extract_split": [("ctc_tpu_torch.data.loaders._common",
+                       "extract_split_features")],
+    "i3d_batches": [("ctc_tpu_torch.data.features",
+                     "I3DFeatureExtractor.__call__")],
+}
+# f32 features, card (cuDNN, TF32 off) against the CPU: the JAX suite's
+# bound for its I3D against the reference (tests/test_i3d.py)
+PIXELS_FEAT_RTOL, PIXELS_FEAT_ATOL = 1e-3, 2e-4
+# chunked against one-shot on the card: the same f32 convolutions, cuDNN
+# free to pick another algorithm for a batch of 20 clips than of 100
+PIXELS_CHUNK_RTOL, PIXELS_CHUNK_ATOL = 1e-4, 1e-5
+# a finetune step (20 clips), the card's and the CPU's f32 step each
+# against the exact one (float64): the loss; the backbone's SGD step, each
+# tensor's max |dev| to 15% of its largest element and the median
+# tensor's to 2%; its running statistics.  Batch statistics by E[x^2] -
+# E[x]^2 (flax's) cancel on post-ReLU activations, so at full depth an f32
+# step misses the exact one by up to 8.8% (card) and 10.0% (CPU) of a
+# tensor's largest element, median 0.77% and 0.76% (this check's own
+# readings, NVIDIA H100 80GB HBM3, 700 W); the bounds are 1.5x the worst
+# tensor's reading and 2.6x the median's
+PIXELS_STEP_LOSS_RTOL = 1e-4
+PIXELS_BACKBONE_STEP_RTOL = 0.15
+PIXELS_BACKBONE_STEP_MEDIAN_RTOL = 0.02
+PIXELS_STATS_RTOL, PIXELS_STATS_ATOL = 1e-4, 1e-5
+# bf16 against f32 on the card (tests/test_mixed_precision.py's bounds):
+# the head rtol / atol 0.05, the I3D's features a relative deviation 0.1;
+# a run's per-epoch losses rtol 0.05
+BF16_HEAD_TOL = 0.05
+BF16_I3D_REL = 0.1
+BF16_LOSS_RTOL = 0.05
+
+
+def pixels_paths(corpus) -> list:
+    return ["--rgb-data", corpus["rgb_data"],
+            "--train-file", corpus["train_file"],
+            "--val-file", corpus["val_file"]]
+
+
+def pixels_model(**kw):
+    """The pixels model with the CLI's initial weights (seed 0)."""
+    import torch
+
+    from ctc_tpu_torch.models import I3DLSTM
+
+    model = I3DLSTM(hidden=33, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def pixels_cli_run(label, argv, stages):
+    """One CLI run on the card with the counts and the peak memory reset
+    before it and ``stages`` timed inside it; ``(history, (train, val)
+    loaders, launches, seconds, stage seconds, stage calls, peak bytes,
+    printed text)``."""
+    import torch
+
+    from ctc_tpu_torch.cli import main as cli_main
+
+    loaders = []
+    get_dataset = cli_main.get_dataset
+
+    def kept(cfg):
+        loaders.append(get_dataset(cfg))
+        return loaders[-1]
+
+    cli_main.get_dataset = kept
+    out = io.StringIO()
+    try:
+        with timed_stages(stages) as (seconds, calls), \
+                contextlib.redirect_stdout(out):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            history = cli_main.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+    finally:
+        cli_main.get_dataset = get_dataset
+    if len(loaders) != 1:
+        fail(f"pixels {label}: get_dataset called {len(loaders)} times")
+    if torch.backends.cudnn.allow_tf32:
+        fail(f"pixels {label}: cuDNN TF32 left on by the CLI")
+    return (history, loaders[0], launches, wall, dict(seconds), dict(calls),
+            torch.cuda.max_memory_allocated(), out.getvalue())
+
+
+def backbone_state(state_dict) -> dict:
+    return {k: v for k, v in state_dict.items() if k.startswith("i3d.")}
+
+
+def pixels_copy(batch) -> dict:
+    """Host -> device copy of a pixel batch: MB, and ms pageable and from
+    pinned memory (the host clock to a synchronize)."""
+    import torch
+
+    from ctc_tpu_torch.train.trainer import to_device
+
+    feats = batch["feats"]
+    out = {"mb": sum(v.nbytes for v in batch.values()) / 1e6,
+           "feats_shape": list(feats.shape)}
+    for mode in ("pageable", "pinned"):
+        times = []
+        for _ in range(3):
+            if mode == "pinned":
+                host = {k: torch.from_numpy(v).pin_memory()
+                        for k, v in batch.items()}
+            else:
+                host = batch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev = to_device(host, "cuda")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del dev
+        out[f"{mode}_ms"] = spread(times)
+    return out
+
+
+def pixels_step_times(batch):
+    """The pixels train step on one device-resident batch (B=10, T=10):
+    frozen and finetune, f32 and bf16 (``--compute-dtype bf16
+    --i3d-act-dtype bf16``), eager and as K=2 steps in one CUDA graph;
+    each mode's device ms a step (profiler) and peak memory, and the I3D's
+    share of the device ms: 1 - the device ms of the head's step on
+    features of the batch's shape (the same head, loss and optimizer) /
+    the pixels step's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_tpu_torch.models import LSTMHead
+    from ctc_tpu_torch.train import Trainer
+    from ctc_tpu_torch.train.graphs import MultiStep
+    from ctc_tpu_torch.train.trainer import to_device
+
+    dev_batch = to_device(batch, "cuda")
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def trainer_for(model, pixels):
+        tr = Trainer(model, device="cuda", lr=1e-3, weight_decay=1e-4,
+                     i3d_optimizer=(
+                         {"lr": 1e-3, "momentum": 0.9,
+                          "weight_decay": 1e-4,
+                          "finetune": not model.freeze_backbone}
+                         if pixels else None))
+        return tr, tr.init_state()
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    b, t = batch["feats"].shape[:2]
+    feats = {**dev_batch, "feats": torch.randn((b, t, 1024),
+                                               device="cuda")}
+    head_tr, head_state = trainer_for(LSTMHead(1024, 33), False)
+
+    def head_steps(n):
+        for _ in range(n):
+            head_tr.train_step(head_state, feats, head_tr.generator)
+
+    def device_ms(fn):
+        """Device ms a step of ``fn(2)`` (two steps) under the profiler,
+        the window's host ms, and the kernels a step."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(2)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation()]
+        return (sum(e.duration_ns() for e in events) / 1e6 / 2, window_ms,
+                len(events) / 2)
+
+    head_steps(3)
+    head_ms = timed(head_steps, 10)
+    head_device_ms = device_ms(head_steps)[0]
+    rows = {}
+    for finetune in (False, True):
+        for dtype in ("f32", "bf16"):
+            bf16 = dtype == "bf16"
+            model = pixels_model(
+                freeze_backbone=not finetune,
+                i3d_dtype=torch.bfloat16 if bf16 else None,
+                i3d_act_dtype=torch.bfloat16 if bf16 else None)
+            torch.cuda.reset_peak_memory_stats()
+            tr, state = trainer_for(model, True)
+
+            def eager(n, tr=tr, state=state):
+                for _ in range(n):
+                    tr.train_step(state, dev_batch, tr.generator)
+
+            eager(2)
+            eager_ms = [timed(eager, 1) for _ in range(3)]
+            eager_peak = torch.cuda.max_memory_allocated()
+            dev_ms, window_ms, kernels = device_ms(eager)
+            # a K=2 graph holds a step's activations in a pool of its
+            # own beside the eager run's cached blocks: run it where both
+            # fit the card
+            fits = 2 * eager_peak < 0.9 * total
+            graph_ms = None
+            if fits:
+                multi = MultiStep(tr.train_step, 2, train=True,
+                                  device="cuda", generator=tr.generator)
+
+                def graph(n, multi=multi, state=state):
+                    for _ in range(n // 2):
+                        multi(state, [dev_batch, dev_batch])
+
+                torch.cuda.empty_cache()
+                graph(4)  # the warm-up group and the capture, a replay
+                graph_ms = spread([timed(graph, 2) for _ in range(3)])
+                del multi, graph
+            label = f"{'finetune' if finetune else 'frozen'}_{dtype}"
+            rows[label] = {
+                "eager_step_ms": spread(eager_ms),
+                "graph_k2_step_ms": (graph_ms if fits else
+                                     "not run: twice the eager peak does "
+                                     "not fit 90% of the card"),
+                "device_ms_per_step": dev_ms,
+                "device_busy_share": dev_ms * 2 / window_ms,
+                "kernels_per_step": kernels,
+                "i3d_share": 1.0 - head_device_ms / dev_ms,
+                "peak_bytes_eager": eager_peak,
+                "peak_bytes_with_graph": torch.cuda.max_memory_allocated(),
+            }
+            del tr, state, model
+            torch.cuda.empty_cache()
+    return {"head_step_ms": head_ms, "head_device_ms_per_step":
+            head_device_ms, "modes": rows}
+
+
+def pixels_step_vs_cpu(batch, card):
+    """One finetune train step on the first train batch's first 2 windows
+    (20 clips; the CPU takes seconds a clip), same weights, dropout off:
+    the Trainer's f32 step on the card and on the CPU, each held to the
+    exact step, and to each other.  The exact step is the same forward and
+    backward in float64 on the card (``.double()``, activations f64), its
+    loss in f32 through the lattice kernel (which takes f32 only; the
+    logits' rounding is 1e-7 relative, far below the f32 batch statistics'
+    error), and SGD's first update ``-lr (g + wd p)`` from its gradient.
+    Prints the readings, then fails on any beyond its bound."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch.losses import LOSS_FNS
+    from ctc_tpu_torch.train import Trainer
+    from ctc_tpu_torch.train.trainer import to_device
+
+    lr, wd = 1e-3, 1e-4
+    small = {k: v[:2] for k, v in batch.items()}
+    out, seconds = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = pixels_model(freeze_backbone=False, dropout_rate=0.0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        tr = Trainer(model, device=dev, lr=lr, weight_decay=wd,
+                     i3d_optimizer={"lr": lr, "momentum": 0.9,
+                                    "weight_decay": wd, "finetune": True})
+        state = tr.init_state(before)
+        t0 = time.perf_counter()
+        _, m = tr.train_step(state, to_device(small, dev), tr.generator)
+        out[dev] = (float(m["loss"]), {k: v.detach().cpu() for k, v in
+                                       model.state_dict().items()})
+        seconds[dev] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = pixels_model(freeze_backbone=False, dropout_rate=0.0,
+                         i3d_act_dtype=torch.float64).double().to("cuda")
+    dev_batch = to_device(small, "cuda")
+    logits = exact(dev_batch["feats"].double(), train=True)
+    loss = LOSS_FNS["noblank"](logits.float(), dev_batch["paths"],
+                               dev_batch["input_lengths"],
+                               dev_batch["target_lengths"])
+    loss.backward()
+    ref = {k: v.detach().cpu() for k, v in exact.state_dict().items()}
+    params = dict(exact.named_parameters())
+    ref_step = {k: (-lr * (p.grad + wd * p)).detach().cpu()
+                for k, p in params.items() if k.startswith("i3d.")}
+    torch.cuda.synchronize()
+    seconds["cuda_f64"] = time.perf_counter() - t0
+    l_ref = float(loss.detach())
+    del exact, logits, loss, params
+    torch.cuda.empty_cache()
+
+    def rel_steps(after, other_step=None):
+        """Each backbone tensor's max |dev| of the step from the exact
+        (or ``other_step``'s), over the exact step's largest element."""
+        devs = {}
+        for k, want in ref_step.items():
+            step = (after[k] - before[k]).double()
+            other = want if other_step is None else other_step[k]
+            devs[k] = max_dev(step, other) / max(float(want.abs().max()),
+                                                 1e-30)
+        return devs
+
+    result = {"clips": int(np.prod(small["feats"].shape[:2])),
+              "seconds": seconds, "loss_exact": l_ref}
+    faults = []
+    for dev in ("cuda", "cpu"):
+        loss_, state = out[dev]
+        if not np.isclose(loss_, l_ref, rtol=PIXELS_STEP_LOSS_RTOL,
+                          atol=0.0):
+            faults.append(f"pixels step loss {dev} {loss_} vs exact {l_ref}")
+        worst_stats = 0.0
+        for k, want in ref.items():
+            if k.startswith("i3d.") and "running" in k:
+                got = state[k].double()
+                if not torch.allclose(got, want, rtol=PIXELS_STATS_RTOL,
+                                      atol=PIXELS_STATS_ATOL):
+                    faults.append(f"pixels step {dev} {k} vs exact: max "
+                                  f"|dev| {max_dev(got, want)}")
+                worst_stats = max(worst_stats, max_dev(got, want))
+        steps = rel_steps(state)
+        worst = max(steps, key=steps.get)
+        median = float(np.median(list(steps.values())))
+        result[dev] = {"loss": loss_,
+                       "backbone_step_max_rel_dev": steps[worst],
+                       "backbone_step_max_rel_dev_at": worst,
+                       "backbone_step_median_rel_dev": median,
+                       "backbone_stats_max_abs_dev": worst_stats}
+        if (steps[worst] > PIXELS_BACKBONE_STEP_RTOL
+                or median > PIXELS_BACKBONE_STEP_MEDIAN_RTOL):
+            faults.append(f"pixels step: {dev} SGD step vs exact part by "
+                          f"{steps[worst]} ({worst}), median {median}")
+    (_, s_cpu), (_, s_gpu) = out["cpu"], out["cuda"]
+    cpu_step = {k: (s_cpu[k] - before[k]).double() for k in ref_step}
+    between = rel_steps(s_gpu, cpu_step)
+    worst = max(between, key=between.get)
+    result["cuda_vs_cpu"] = {
+        "backbone_step_max_rel_dev": between[worst],
+        "backbone_step_max_rel_dev_at": worst,
+        "backbone_step_median_rel_dev": float(np.median(
+            list(between.values()))),
+        "head_param_max_abs_dev": max(
+            max_dev(s_gpu[k], s_cpu[k]) for k in s_cpu
+            if not k.startswith("i3d.") and "running" not in k
+            and not k.endswith("num_batches_tracked"))}
+    result["tolerance"] = {
+        "loss_rtol": PIXELS_STEP_LOSS_RTOL,
+        "backbone_step_rtol": PIXELS_BACKBONE_STEP_RTOL,
+        "backbone_step_median_rtol": PIXELS_BACKBONE_STEP_MEDIAN_RTOL,
+        "stats_rtol_atol": [PIXELS_STATS_RTOL, PIXELS_STATS_ATOL]}
+    emit({"phase": "pixels_step_vs_cpu", **result, "nvidia_smi": card})
+    if faults:
+        fail("; ".join(faults))
+
+
+def pixels_bf16_vs_f32(batch):
+    """bf16 against f32 on the card, module by module: the LSTM head
+    (``dtype=bf16``) on 1024-d features of the batch's shape, and the
+    I3D's features (``dtype=act_dtype=bf16``) of the batch's first 2
+    windows."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch.models import InceptionI3d, LSTMHead
+
+    b, t = batch["feats"].shape[:2]
+    x = torch.randn((t, b, 1024), generator=torch.Generator().manual_seed(3))
+    head = LSTMHead(1024, 33, dtype=torch.bfloat16)
+    head.reset_parameters(torch.Generator().manual_seed(0))
+    f32 = LSTMHead(1024, 33)
+    f32.load_state_dict(head.state_dict())
+    i3d = InceptionI3d(num_classes=None, dtype=torch.bfloat16,
+                       act_dtype=torch.bfloat16)
+    i3d.reset_parameters(torch.Generator().manual_seed(0))
+    i3d32 = InceptionI3d(num_classes=None)
+    i3d32.load_state_dict(i3d.state_dict())
+    clips = torch.from_numpy(batch["feats"][:2]).to("cuda")
+    with torch.no_grad():
+        h16 = head.to("cuda")(x.to("cuda"), train=False)
+        h32 = f32.to("cuda")(x.to("cuda"), train=False)
+        f16 = i3d.to("cuda")(clips).float()
+        f32_ = i3d32.to("cuda")(clips)
+    if h16.dtype != torch.float32:
+        fail(f"bf16 head output dtype {h16.dtype}")
+    check_close("bf16 head vs f32", h16, h32, BF16_HEAD_TOL, BF16_HEAD_TOL)
+    rel = max_dev(f16, f32_) / float(f32_.abs().max())
+    if not (bool(torch.isfinite(f16).all()) and rel < BF16_I3D_REL):
+        fail(f"bf16 I3D features vs f32: relative deviation {rel}")
+    return {"head_max_abs_dev": max_dev(h16, h32),
+            "i3d_feature_rel_dev": rel,
+            "bounds": {"head_rtol_atol": BF16_HEAD_TOL,
+                       "i3d_rel": BF16_I3D_REL}}
+
+
+def phase_pixels(work, card):
+    """Pixels mode on the card at full width: write the JPEG corpus; the
+    frozen charades_pixels CLI run (rows 1-2 launched as the loader
+    implies, the loss falls, the backbone bit for bit unchanged),
+    --finetune-i3d (the backbone moves; one step on the card and on the
+    CPU, each held to the exact float64 step), --i3d-chunk 20 (and
+    chunked against one-shot), --compute-dtype bf16 --i3d-act-dtype bf16;
+    the extraction run (charades_ctc_next_pred
+    without --features-dir: features against the CPU's, the cache read on
+    a rerun); --compute-dtype bf16 on the synthetic main path against
+    f32; then the step times, the decode and the copy.  Returns ``{run:
+    launch counts}``."""
+    import numpy as np
+    import torch
+
+    from ctc_tpu_torch.data import native_loader
+    from ctc_tpu_torch.data.charades_corpus import write_corpus
+    from ctc_tpu_torch.data.loaders._common import filter_samples
+    from ctc_tpu_torch.data.loaders.charades_ctc_next_pred import _prepared
+    from ctc_tpu_torch import config
+    from ctc_tpu_torch.data.features import (
+        I3DFeatureExtractor,
+        extract_split_features,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    root = os.path.join(work, "pixels_corpus")
+    corpus = write_corpus(root, seed=0, train_videos=PIXELS_VIDEOS[0],
+                          val_videos=PIXELS_VIDEOS[1], jpeg=True)
+    write_s = time.perf_counter() - t0
+    decoder = native_loader.decoder()
+    emit({"phase": "pixels_corpus", "seconds": write_s,
+          "videos": list(PIXELS_VIDEOS), "samples": {
+              k: corpus["samples"][k] for k in ("features_train",
+                                                "features_val")},
+          "decoder": decoder, "native_build_error": native_loader.build_error,
+          "nvidia_smi": card})
+    paths = pixels_paths(corpus)
+    all_launches = {}
+    first_batch = None
+    for label, flags, epochs in PIXELS_RUNS:
+        cache = os.path.join(work, f"pixels_{label}")
+        argv = (CHARADES_GEOMETRY + ["--dataset", "charades_pixels"] + paths
+                + ["--cache-dir", cache, "--epochs", str(epochs),
+                   "--device", "cuda"] + flags)
+        (history, (train, val), launches, wall, stages, calls, peak,
+         printed) = pixels_cli_run(label, argv, PIXELS_STAGES)
+        n_train, n_val = len(train), len(val)
+        want = expect_counts(noblank=((n_train + n_val) * epochs,
+                                      n_train * epochs))
+        if launches != want:
+            fail(f"pixels {label}: launch counts {launches}, expected "
+                 f"{want}")
+        if f"JPEG decoder: {decoder}" not in printed:
+            fail(f"pixels {label}: no 'JPEG decoder: {decoder}' line")
+        losses = [h["train"]["loss"] for h in history]
+        if not all(np.isfinite(losses)) or len(losses) != epochs:
+            fail(f"pixels {label}: training losses {losses}")
+        if label == "frozen" and not losses[-1] < losses[0]:
+            fail(f"pixels frozen: training loss did not fall: {losses}")
+        ckpt = torch.load(os.path.join(cache, "test", "ckpt",
+                                       f"{epochs - 1}.pt"),
+                          map_location="cpu", weights_only=True)
+        init = backbone_state(pixels_model().state_dict())
+        got = backbone_state(ckpt["model"])
+        unchanged = all(torch.equal(got[k], v) for k, v in init.items())
+        if unchanged == (label == "finetune"):
+            fail(f"pixels {label}: backbone "
+                 f"{'unchanged' if unchanged else 'moved'}")
+        if first_batch is None:
+            first_batch = train[0]
+        batches = calls["batch"]
+        emit({"phase": "pixels", "run": label, "argv": argv,
+              "train_batches": n_train, "val_batches": n_val,
+              "batch_feats_shape": list(first_batch["feats"].shape),
+              "launches": launches, "train_loss_by_epoch": losses,
+              "val_loss_by_epoch": [h["val"]["loss"] for h in history],
+              "backbone_unchanged": unchanged, "seconds": wall,
+              "step_s_host_avg": [h["train"]["time"] for h in history],
+              "decoder": decoder,
+              "batch_decode_s": stages["batch"] / max(batches, 1),
+              # a window is T anchors x a stack of 10 frames
+              "frame_decode_ms": (stages["window_decode"] * 1e3 / max(
+                  calls["window_decode"] * first_batch["feats"].shape[1]
+                  * first_batch["feats"].shape[2], 1)),
+              "batches_decoded": batches,
+              "max_memory_allocated": peak, "nvidia_smi": card})
+        all_launches[f"pixels_{label}"] = launches
+
+    pixels_step_vs_cpu(first_batch, card)
+
+    # --i3d-chunk 20 against one-shot, on the card
+    one = pixels_model().to("cuda")
+    chunked = pixels_model(feat_chunk=PIXELS_CHUNK).to("cuda")
+    chunked.load_state_dict(one.state_dict())
+    clips = torch.from_numpy(first_batch["feats"]).to("cuda")
+    with torch.no_grad():
+        a, b = one(clips), chunked(clips)
+    check_close("pixels chunked vs one-shot", b, a, PIXELS_CHUNK_RTOL,
+                PIXELS_CHUNK_ATOL)
+    emit({"phase": "pixels_chunk_vs_one_shot", "chunk": PIXELS_CHUNK,
+          "clips": int(clips.shape[0] * clips.shape[1]),
+          "logits_max_abs_dev": max_dev(a, b),
+          "tolerance": [PIXELS_CHUNK_RTOL, PIXELS_CHUNK_ATOL]})
+    del one, chunked, clips, a, b
+
+    # extraction: charades_ctc_next_pred without --features-dir, twice
+    cache = os.path.join(work, "pixels_extract")
+    argv = (paths + ["--cache-dir", cache, "--epochs", "1",
+                     "--device", "cuda"] + CHARADES_GEOMETRY)
+    runs, printed = [], []
+    for _ in range(2):
+        (history, (train, val), launches, wall, stages, calls, peak,
+         out) = pixels_cli_run("extract", argv, EXTRACT_STAGES)
+        printed.append(out)
+        want = expect_counts(noblank=(len(train) + len(val), len(train)))
+        if launches != want:
+            fail(f"pixels extract: launch counts {launches}, expected "
+                 f"{want}")
+        runs.append({"seconds": wall, "stage_s": stages,
+                     "stage_calls": calls, "launches": launches,
+                     "train_loss": history[0]["train"]["loss"],
+                     "max_memory_allocated": peak})
+    if runs[0]["stage_calls"]["i3d_batches"] == 0 or \
+            runs[1]["stage_calls"]["i3d_batches"] != 0:
+        fail(f"pixels extract: I3D batches {runs[0]['stage_calls']} then "
+             f"{runs[1]['stage_calls']}: the rerun did not read the cache")
+    if ("WARNING: --rgb-pretrained-weights not set" not in printed[0]
+            or "JPEG decoder: pil (feature extraction)" not in printed[0]):
+        fail("pixels extract: no WARNING or decoder line in the first run")
+    cfg = config.parse(argv)
+    data, _ = _prepared(cfg, "train", cfg.train_file)
+    card_feats = np.load(os.path.join(cfg.cache, "features_train",
+                                      "features.npy"))
+    model = pixels_model().i3d
+    cpu_feats = extract_split_features(
+        filter_samples(data, [0, 1]),
+        I3DFeatureExtractor(model, device="cpu"),
+        os.path.join(work, "pixels_extract_cpu"), gap=cfg.gap)
+    check_close("pixels features card vs cpu",
+                torch.from_numpy(card_feats[:2]),
+                torch.from_numpy(np.asarray(cpu_feats)),
+                PIXELS_FEAT_RTOL, PIXELS_FEAT_ATOL)
+    emit({"phase": "pixels_extract", "argv": argv, "runs": runs,
+          "features_shape": list(card_feats.shape),
+          "cpu_windows": 2,
+          "features_max_abs_dev": max_dev(torch.from_numpy(card_feats[:2]),
+                                          torch.from_numpy(cpu_feats)),
+          "tolerance": [PIXELS_FEAT_RTOL, PIXELS_FEAT_ATOL],
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "nvidia_smi": card})
+    all_launches["pixels_extract"] = runs[0]["launches"]
+
+    # --compute-dtype bf16 on the synthetic main path against f32
+    histories = {}
+    for dtype in ("f32", "bf16"):
+        argv = MAIN_ARGS + ["--cache-dir", os.path.join(work, f"main_{dtype}"),
+                            "--compute-dtype", dtype]
+        history, loaders, launches, wall, _, _, _, _ = pixels_cli_run(
+            f"main {dtype}", argv, {})
+        steps = len(loaders[0]) * 2
+        want = expect_counts(noblank=(steps + len(loaders[1]) * 2, steps))
+        if launches != want:
+            fail(f"main path {dtype}: launch counts {launches}, expected "
+                 f"{want}")
+        histories[dtype] = [[h["train"]["loss"], h["val"]["loss"]]
+                            for h in history]
+        all_launches[f"main_{dtype}"] = launches
+    if not np.allclose(histories["bf16"], histories["f32"],
+                       rtol=BF16_LOSS_RTOL, atol=0.0):
+        fail(f"main path bf16 losses {histories['bf16']} vs f32 "
+             f"{histories['f32']}")
+    emit({"phase": "pixels_bf16", "main_path_losses": histories,
+          "loss_rtol": BF16_LOSS_RTOL, **pixels_bf16_vs_f32(first_batch),
+          "nvidia_smi": card})
+
+    times = pixels_step_times(first_batch)
+    emit({"phase": "pixels_step", "batch_feats_shape":
+          list(first_batch["feats"].shape), **times,
+          "copy": pixels_copy(first_batch), "nvidia_smi": card})
+    emit({"phase": "pixels_done", "seconds": time.perf_counter() - t_phase})
+    return all_launches
 
 
 def eval_run(entry, argv):
@@ -3451,6 +4052,7 @@ def main() -> None:
                                             samples))
         phase_trainer_features(work, card, corpus_paths)
         parallel_launches = phase_parallel(work, card)
+        pixels_launches = phase_pixels(work, card)
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()
@@ -3499,6 +4101,9 @@ def main() -> None:
             # the same kernel's launches in each Charades run
             "charades_launches": {run: n[kname] for run, n in
                                   charades_launches.items() if n[kname]},
+            # the pixels phase's runs (the I3D's loss)
+            "pixels_launches": {run: n[kname] for run, n in
+                                pixels_launches.items() if n[kname]},
             # and in each run of the parallel phase, rank by rank
             "parallel_launches": {run: [n[kname] for n in ranks]
                                   for run, ranks in parallel_launches.items()

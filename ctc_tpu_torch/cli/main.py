@@ -7,7 +7,17 @@ one-card trainer features ``--steps-per-dispatch`` (one CUDA graph of K
 steps on the card), ``--accum-grad``, ``--skip-nonfinite``,
 ``--grad-norm-freq``, ``--max-restarts`` and ``--profile-dir``, and the data
 axis ``--data-parallel`` / ``--num-hosts`` / ``--host-id`` /
-``--coordinator``).
+``--coordinator``, ``--compute-dtype bf16``, and pixels mode: the
+``*_pixels`` datasets with ``--finetune-i3d``, ``--i3d-act-dtype``,
+``--i3d-chunk`` and ``--rgb-pretrained-weights``, and feature extraction
+for a Charades dataset without ``--features-dir``).
+
+A ``*_pixels`` dataset trains :class:`ctc_tpu_torch.models.I3DLSTM` (the
+I3D in every step, frozen unless ``--finetune-i3d``); any other trains the
+LSTM head on features.  ``--compute-dtype bf16`` runs the head's two
+matmuls in bf16, or in pixels mode the I3D's convolutions (the head stays
+f32 there).  Float32 convolutions and matmuls run in full float32 on the
+card (TF32 off).
 
 Seed, tee, build the model and the trainer, build the data loaders
 (string-keyed dataset registry), optionally resume, then either evaluate
@@ -38,7 +48,7 @@ from dataclasses import dataclass
 import torch
 
 from ctc_tpu_torch import config as config_lib
-from ctc_tpu_torch.models import LSTMHead
+from ctc_tpu_torch.models import I3DLSTM, LSTMHead, full_f32_precision
 from ctc_tpu_torch.train import Trainer, resolve_device
 from ctc_tpu_torch.utils import Tee, seed_everything
 
@@ -153,6 +163,34 @@ def make_video_eval(cfg):
         return out
 
     return video_eval
+
+
+def build_model(cfg):
+    """``I3DLSTM`` for a ``*_pixels`` dataset, else ``LSTMHead``, with the
+    compute dtypes the flags ask for."""
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bf16" else None
+    if cfg.dataset.endswith("_pixels"):
+        return I3DLSTM(
+            hidden=cfg.head_classes, dropout_rate=cfg.dropout,
+            freeze_backbone=not cfg.finetune_i3d, i3d_dtype=dtype,
+            i3d_act_dtype=(torch.bfloat16 if cfg.i3d_act_dtype == "bf16"
+                           else None),
+            feat_chunk=cfg.i3d_chunk,
+        )
+    return LSTMHead(cfg.extract_feat_dim, cfg.head_classes,
+                    dropout_rate=cfg.dropout, dtype=dtype)
+
+
+def decoder_line(cfg) -> str | None:
+    """Which JPEG decoder the run reads frames with, if it reads any:
+    the pixels loader's (native or PIL), or PIL for feature extraction."""
+    from ctc_tpu_torch.data import native_loader
+
+    if cfg.dataset.endswith("_pixels"):
+        return f"JPEG decoder: {native_loader.decoder()}"
+    if cfg.dataset != "synthetic" and not cfg.features_dir:
+        return "JPEG decoder: pil (feature extraction)"
+    return None
 
 
 def check_seq_flags(cfg, rank_batch: int | None = None) -> None:
@@ -297,7 +335,6 @@ def check_decode_flags(cfg) -> None:
 
 def main(argv=None):
     cfg = config_lib.parse(argv)
-    config_lib.reject_unported(cfg)
     check_decode_flags(cfg)
     device = resolve_device(cfg.device)
     plan = plan_ranks(cfg)
@@ -326,10 +363,14 @@ def run(cfg, device, mesh=None):
               + f" ({mesh.hosts} hosts, {mesh.data} ranks, backend "
                 f"{mesh.backend})")
     seed_everything(cfg.manual_seed)
+    full_f32_precision()
+    line = decoder_line(cfg)
+    if line:
+        print(line)
 
     train_batches, val_batches = get_dataset(cfg)
-    model = LSTMHead(cfg.extract_feat_dim, cfg.head_classes,
-                     dropout_rate=cfg.dropout)
+    pixels = cfg.dataset.endswith("_pixels")
+    model = build_model(cfg)
     trainer = Trainer(
         model,
         loss_kind=cfg.loss,
@@ -357,8 +398,18 @@ def run(cfg, device, mesh=None):
         joint_object_weight=cfg.joint_object_weight,
         mesh=mesh,
         model_parallel=cfg.model_parallel,
+        i3d_optimizer=(
+            {"lr": cfg.lr, "momentum": cfg.momentum,
+             "weight_decay": cfg.weight_decay,
+             "finetune": cfg.finetune_i3d}
+            if pixels else None
+        ),
     )
     state = trainer.init_state()
+    if pixels and cfg.rgb_pretrained_weights:
+        model.load_backbone(torch.load(cfg.rgb_pretrained_weights,
+                                       map_location="cpu"))
+        print("loaded pretrained I3D backbone")
     start_epoch = cfg.start_epoch
     if cfg.resume:
         from ctc_tpu_torch.train import checkpoints as ckpt

@@ -1,9 +1,8 @@
 """Experiment configuration (port of ``ctc_tpu/config.py``).
 
 The same dataclass and the same flag spellings (``--v-class``,
-``--lr-decay-rate``, ...), plus ``--device`` (default ``cuda``).  Flags whose
-code is not ported yet are parsed so that spellings stay identical, and
-:func:`reject_unported` refuses them with the ROADMAP item that ports them.
+``--lr-decay-rate``, ...), plus ``--device`` (default ``cuda``).  Every
+flag of ``ctc_tpu`` has its code in the port.
 """
 
 from __future__ import annotations
@@ -101,8 +100,26 @@ class Config:
     cache: str = ""
 
     def finalize(self) -> "Config":
+        if self.lattice_impl not in (None, "torch", "cuda"):
+            raise ValueError("--lattice-impl must be torch or cuda, got "
+                             f"{self.lattice_impl!r}")
         self.cache = os.path.join(self.cache_dir, self.name) + os.sep
         os.makedirs(self.cache, exist_ok=True)
+        # fail at parse time: the chunked I3D extraction needs a frozen
+        # backbone and a chunk that divides the folded clip count
+        # (I3DLSTM checks again)
+        if self.i3d_chunk:
+            if self.finetune_i3d:
+                raise ValueError(
+                    "--i3d-chunk requires a frozen backbone; drop "
+                    "--finetune-i3d or --i3d-chunk"
+                )
+            folded = self.batch_size * self.temporal
+            if folded % self.i3d_chunk:
+                raise ValueError(
+                    f"--i3d-chunk {self.i3d_chunk} must divide "
+                    f"batch_size*temporal = {folded}"
+                )
         return self
 
     @property
@@ -121,41 +138,6 @@ class Config:
         """True when the head predicts the 38-object space (multi-hot
         losses); decides which gt-table column video eval scores against."""
         return self.loss in ("binary", "bce", "mlce")
-
-
-#: (flag, predicate on the config, ROADMAP item that ports it)
-UNPORTED = (
-    ("--compute-dtype bf16", lambda c: c.compute_dtype != "f32",
-     "Queue 1 item 16"),
-    ("a *_pixels dataset", lambda c: c.dataset.endswith("_pixels"),
-     "Queue 1 item 12"),
-    # without cached features a Charades dataset extracts them with the I3D
-    ("a Charades dataset without --features-dir (feature extraction)",
-     lambda c: c.dataset != "synthetic" and not c.features_dir,
-     "Queue 1 item 12"),
-    ("--rgb-pretrained-weights without --features-dir",
-     lambda c: bool(c.rgb_pretrained_weights) and not c.features_dir,
-     "Queue 1 item 12"),
-    ("--finetune-i3d", lambda c: c.finetune_i3d, "Queue 1 item 12"),
-    ("--i3d-act-dtype bf16", lambda c: c.i3d_act_dtype != "f32",
-     "Queue 1 item 12"),
-    ("--i3d-chunk", lambda c: c.i3d_chunk > 0, "Queue 1 item 12"),
-)
-
-
-def reject_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for the first flag whose code is not
-    ported yet; such a flag is never silently ignored."""
-    for flag, used, item in UNPORTED:
-        if used(cfg):
-            raise NotImplementedError(
-                f"{flag} is not ported to ctc_tpu_torch yet (ROADMAP.md "
-                f"{item})"
-            )
-    if cfg.lattice_impl not in (None, "torch", "cuda"):
-        raise ValueError(
-            f"--lattice-impl must be torch or cuda, got {cfg.lattice_impl!r}"
-        )
 
 
 def parse(argv=None) -> Config:

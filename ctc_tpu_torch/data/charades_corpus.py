@@ -15,8 +15,13 @@ What it writes under ``root``:
   1 + Poisson(5.75), an action's length uniform on [6.4, 19.2] s and its
   start uniform over the video, so that it ends inside it.  Actions
   overlap, as in the real corpus;
-* ``rgb/<vid>/<vid>-NNNNNN.jpg``: empty frames at 24 fps over the whole
-  video, which is all the loaders read of them (they count them);
+* ``rgb/<vid>/<vid>-NNNNNN.jpg``: frames at 24 fps over the whole video.
+  By default they are empty, which is all the feature loaders read of them
+  (they count them).  With ``jpeg=True`` they decode, for the pixels path
+  and feature extraction: each video has a pool of ``JPEG_POOL`` smooth
+  seeded ``JPEG_SIZE`` images (shorter side 288 > 256, so the loaders'
+  resize and their 224 crop both do work), and frame j is image
+  ``(j - 1) % JPEG_POOL``, so a gap-strided stack cycles through them;
 * ``features/<key>_<split>.npy``: ``[N, 10, feat_dim]`` float32 normals per
   loader and split, ``N`` from the port's own ``prepare_*`` at the
   reference preset's geometry (``--temporal 10 --gap 2 --num-trans 2``),
@@ -25,13 +30,14 @@ What it writes under ``root``:
 Only the scale is cut: 240 train and 56 test videos by default, against
 the published 7985 and 1863 (the same ratio).  Run: ``python -m
 ctc_tpu_torch.data.charades_corpus DIR [--seed S] [--train-videos N]
-[--val-videos N] [--feat-dim F]``; it prints one JSON line with the paths
-and sample counts.
+[--val-videos N] [--feat-dim F] [--jpeg]``; it prints one JSON line with
+the paths and sample counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import math
 import os
@@ -49,6 +55,11 @@ GEOMETRY = (10, 2, 2)
 #: temporal action intervals over 157 classes (6.75 a video) of 12.8 s on
 #: average
 PUBLISHED = {"video_s": 30.0, "actions": 66500 / 9848, "action_s": 12.8}
+#: decodable frames (``jpeg=True``): (width, height), images a video, and
+#: the JPEG quality
+JPEG_SIZE = (384, 288)
+JPEG_POOL = 8
+JPEG_QUALITY = 90
 HEADER = ("id,subject,scene,quality,relevance,verified,script,objects,"
           "descriptions,actions,length\n")
 
@@ -67,6 +78,21 @@ def _video(rng, vid):
     row = (f'{vid},S{int(rng.integers(0, 300)):03d},"{scene}",6,6,Yes,s,o,'
            f'd,"{";".join(acts)}",{length:.2f}\n')
     return row, math.ceil(length * charades.FPS)
+
+
+def _jpeg_pool(rng) -> list[bytes]:
+    """``JPEG_POOL`` encoded smooth images: random 12 x 9 colour grids
+    resized bilinearly to ``JPEG_SIZE``."""
+    from PIL import Image
+
+    pool = []
+    for _ in range(JPEG_POOL):
+        grid = rng.integers(0, 256, (9, 12, 3), dtype=np.uint8)
+        img = Image.fromarray(grid).resize(JPEG_SIZE, Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=JPEG_QUALITY)
+        pool.append(buf.getvalue())
+    return pool
 
 
 def _split_sizes(labels, counts, temporal, gap, num_trans, split):
@@ -90,12 +116,14 @@ def _split_sizes(labels, counts, temporal, gap, num_trans, split):
 
 
 def write_corpus(root, *, seed: int = 0, train_videos: int = 240,
-                 val_videos: int = 56, feat_dim: int = 1024) -> dict:
-    """Write the corpus under ``root``; returns its paths and
-    ``{"samples": {feature file stem: N}}``."""
-    # one stream for the annotations, one for the features, so the CSVs do
-    # not depend on feat_dim
-    rng, feat_rng = (np.random.default_rng([seed, k]) for k in (0, 1))
+                 val_videos: int = 56, feat_dim: int = 1024,
+                 jpeg: bool = False) -> dict:
+    """Write the corpus under ``root`` (decodable frames with ``jpeg``);
+    returns its paths and ``{"samples": {feature file stem: N}}``."""
+    # one stream for the annotations, one for the features and one for the
+    # frames, so the CSVs depend on neither feat_dim nor jpeg
+    rng, feat_rng, jpeg_rng = (np.random.default_rng([seed, k])
+                               for k in (0, 1, 2))
     temporal = GEOMETRY[0]
     rgb = os.path.join(root, "rgb")
     features = os.path.join(root, "features")
@@ -116,8 +144,10 @@ def write_corpus(root, *, seed: int = 0, train_videos: int = 240,
         for vid, n in counts.items():
             d = os.path.join(rgb, vid)
             os.makedirs(d, exist_ok=True)
+            pool = _jpeg_pool(jpeg_rng) if jpeg else [b""]
             for j in range(1, n + 1):
-                open(os.path.join(d, f"{vid}-{j:06d}.jpg"), "wb").close()
+                with open(os.path.join(d, f"{vid}-{j:06d}.jpg"), "wb") as f:
+                    f.write(pool[(j - 1) % len(pool)])
         out[f"{split}_file"] = csv_path
         labels = charades.parse_charades_csv(csv_path)
         sizes = _split_sizes(labels, counts, *GEOMETRY, split)
@@ -136,9 +166,12 @@ def main(argv=None):
     parser.add_argument("--train-videos", type=int, default=240)
     parser.add_argument("--val-videos", type=int, default=56)
     parser.add_argument("--feat-dim", type=int, default=1024)
+    parser.add_argument("--jpeg", action="store_true",
+                        help="decodable seeded JPEG frames")
     a = parser.parse_args(argv)
     out = write_corpus(a.root, seed=a.seed, train_videos=a.train_videos,
-                       val_videos=a.val_videos, feat_dim=a.feat_dim)
+                       val_videos=a.val_videos, feat_dim=a.feat_dim,
+                       jpeg=a.jpeg)
     print(json.dumps(out))
     return out
 

@@ -2,9 +2,10 @@
 ``ctc_tpu/data/loaders/_common.py``).
 
 Every variant loader runs the same skeleton: parse CSV -> frame counts ->
-variant ``prepare`` -> cached I3D features (``--features-dir``) ->
-per-host index batches -> variant collate.  Only the prepare function,
-the feature file's key and the collate differ per variant.
+variant ``prepare`` -> I3D features (``--features-dir``'s, or extracted by
+the frozen I3D and cached) -> per-host index batches -> variant collate.
+Only the prepare function, the feature file's key and the collate differ
+per variant.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import os
 import numpy as np
 
 from ctc_tpu_torch.data import charades as charades_data
-from ctc_tpu_torch.data.features import extraction_not_ported, load_features
+from ctc_tpu_torch.data.features import extract_split_features, load_features
 from ctc_tpu_torch.data.loading import Prefetcher, host_shard_indices
 
 
@@ -29,14 +30,21 @@ def prepared_split(cfg, csv_file, prepare):
 
 
 def split_features(cfg, data, cache_key: str, split: str) -> np.ndarray:
-    """``[N, T, F]`` clip features for a prepared split:
-    ``<features_dir>/<cache_key>_<split>.npy``, memory-mapped.  Without
-    ``--features-dir`` the features would be extracted (item 12)."""
-    if not cfg.features_dir:
-        raise extraction_not_ported(f"{cache_key}_{split} without "
-                                    "--features-dir")
-    return load_features(
-        os.path.join(cfg.features_dir, f"{cache_key}_{split}.npy")
+    """``[N, T, F]`` clip features for a prepared split.
+
+    ``cfg.features_dir`` set: ``<features_dir>/<cache_key>_<split>.npy``,
+    memory-mapped (a missing file is an error, not a silent
+    re-extraction).  Otherwise the frozen I3D extracts them, cached under
+    ``<cfg.cache>/<cache_key>_<split>``."""
+    if cfg.features_dir:
+        return load_features(
+            os.path.join(cfg.features_dir, f"{cache_key}_{split}.npy")
+        )
+    from ctc_tpu_torch.data.loaders.charades_ctc_next_pred import _extractor
+
+    return extract_split_features(
+        data, _extractor(cfg), os.path.join(cfg.cache, f"{cache_key}_{split}"),
+        gap=cfg.gap, inputsize=cfg.inputsize,
     )
 
 

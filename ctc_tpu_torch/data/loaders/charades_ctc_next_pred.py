@@ -3,20 +3,28 @@ features -> collated batches (port of
 ``ctc_tpu/data/loaders/charades_ctc_next_pred.py``; the reference's default
 train/val dataset).
 
-Features come from ``cfg.features_dir``: ``features_{split}.npy`` and
-``features_val_video.npy`` (``_common.split_features`` with the key
-``features``), ``[N, T, F]`` per prepared split.  Without it they would be
-extracted by the I3D, which is ROADMAP Queue 1 item 12, so
-``--rgb-pretrained-weights`` is never read here.  The collate follows
-``--loss``: the verb path, the multi-hot object path (``binary``) or both
-(``joint``).
+Feature source (``_common.split_features`` with the key ``features``),
+``[N, T, F]`` per prepared split:
+
+1. ``cfg.features_dir``: ``features_{split}.npy`` and
+   ``features_val_video.npy``;
+2. ``cfg.rgb_pretrained_weights``: an I3D checkpoint in the reference's
+   key layout, run frozen over the JPEG windows on ``cfg.device`` and
+   cached under ``<cache>/features_<split>``;
+3. a randomly initialized I3D (from seed 0; smoke runs only), with a
+   WARNING line.
+
+The collate follows ``--loss``: the verb path, the multi-hot object path
+(``binary``) or both (``joint``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ctc_tpu_torch.data import charades
+from ctc_tpu_torch.data.features import I3DFeatureExtractor
 from ctc_tpu_torch.data.loaders._common import (
     shard_and_collate,
     split_features,
@@ -26,6 +34,26 @@ from ctc_tpu_torch.data.loading import (
     collate_joint_ctc,
     collate_verb_ctc,
 )
+from ctc_tpu_torch.models.i3d import InceptionI3d, without_logits
+
+
+def _extractor(cfg):
+    """The frozen I3D feature extractor on ``cfg.device``: the
+    ``--rgb-pretrained-weights`` checkpoint, else random weights."""
+    model = InceptionI3d(num_classes=None)
+    if cfg.rgb_pretrained_weights:
+        model.load_state_dict(without_logits(torch.load(
+            cfg.rgb_pretrained_weights, map_location="cpu")))
+    else:
+        print(
+            "WARNING: --rgb-pretrained-weights not set — extracting "
+            "features with a RANDOMLY INITIALIZED I3D backbone. This is "
+            "only meaningful for smoke runs; real training needs the "
+            "Kinetics checkpoint (reference models/__init__.py:29-31).",
+            flush=True,
+        )
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    return I3DFeatureExtractor(model, device=cfg.device)
 
 
 def _prepared(cfg, split, csv_file):

@@ -3,8 +3,8 @@
 ``ctc_tpu/data/loaders/charades_my_pred.py``): dense stride-1 windows over
 the self-recorded video with the hardcoded label dict.
 
-Returns ``(data, None)``; with frames on disk it raises (item 12, see
-:mod:`ctc_tpu_torch.data.loaders.myvideo`).
+Returns ``(data, None)`` with the extracted ``features``
+(see :mod:`ctc_tpu_torch.data.loaders.myvideo`).
 """
 
 from __future__ import annotations
@@ -15,4 +15,4 @@ from ctc_tpu_torch.data.loaders.myvideo import own_video
 
 def get(cfg, labels: dict | None = None):
     return own_video(cfg, labels or MYVIDEO_LABELS, prepare_my_pred,
-                     "charades_my_pred")
+                     "features_my_pred")

@@ -3,7 +3,7 @@
 
 157-class start-time index paths with ``adjust_time=4`` and the frames
 offset by 50, for blank-CTC models over the combined class space.  Eval
-convention: ``(data, None)``; with frames on disk it raises (item 12, see
+convention: ``(data, None)`` with the extracted ``features`` (see
 :mod:`ctc_tpu_torch.data.loaders.myvideo`).
 """
 
@@ -18,4 +18,4 @@ from ctc_tpu_torch.data.loaders.myvideo import own_video
 
 def get(cfg, labels: dict | None = None):
     return own_video(cfg, labels or MYVIDEO_LABELS, prepare_myvideo_c_class,
-                     "myvideo_c_class")
+                     "features_myvideo_c_class")

@@ -2,8 +2,8 @@
 ``ctc_tpu/data/loaders/myvideo_ver3.py``).
 
 Current-time o/v single-label targets on a fixed ``temporal``-step time
-grid.  Eval convention: ``(data, None)``; with frames on disk it raises
-(item 12, see :mod:`ctc_tpu_torch.data.loaders.myvideo`).
+grid.  Eval convention: ``(data, None)`` with the extracted ``features``
+(see :mod:`ctc_tpu_torch.data.loaders.myvideo`).
 """
 
 from __future__ import annotations
@@ -17,4 +17,4 @@ from ctc_tpu_torch.data.loaders.myvideo import own_video
 
 def get(cfg, labels: dict | None = None):
     return own_video(cfg, labels or MYVIDEO_LABELS, prepare_myvideo_ver3,
-                     "myvideo_ver3")
+                     "features_myvideo_ver3")

@@ -1,6 +1,18 @@
-"""Models: the LSTM head over I3D clip features."""
+"""Models: the LSTM head over I3D clip features, the I3D backbone and the
+pixels model that joins them."""
 
-from ctc_tpu_torch.models.convert import lstm_head_from_jax
+from ctc_tpu_torch.models.convert import (
+    i3d_from_jax,
+    i3d_lstm_from_jax,
+    lstm_head_from_jax,
+)
+from ctc_tpu_torch.models.i3d import (
+    InceptionI3d,
+    InceptionModule,
+    Unit3D,
+    full_f32_precision,
+)
+from ctc_tpu_torch.models.i3d_lstm import I3DLSTM
 from ctc_tpu_torch.models.lstm import (
     FeatureHead,
     LSTMHead,
@@ -8,5 +20,7 @@ from ctc_tpu_torch.models.lstm import (
     sync_batch_norm,
 )
 
-__all__ = ["FeatureHead", "LSTMHead", "TemporalBatchNorm", "lstm_head_from_jax",
+__all__ = ["FeatureHead", "I3DLSTM", "InceptionI3d", "InceptionModule",
+           "LSTMHead", "TemporalBatchNorm", "Unit3D", "full_f32_precision",
+           "i3d_from_jax", "i3d_lstm_from_jax", "lstm_head_from_jax",
            "sync_batch_norm"]

@@ -1,9 +1,11 @@
-"""Carry ``ctc_tpu`` LSTM-head weights into the port.
+"""Carry ``ctc_tpu`` weights into the port: the LSTM head, the I3D backbone
+and the pixels model that joins them.
 
 The flax trees arrive as nested dicts of numpy arrays, so this module needs
 nothing of JAX.  Dense kernels are ``[in, out]`` in flax and ``[out, in]`` in
 ``nn.Linear``; the recurrent kernel keeps its ``[hidden, 4 * hidden]``
-orientation in both.
+orientation in both.  Conv kernels are DHWIO in flax and OIDHW in
+``nn.Conv3d``; flax's BatchNorm ``scale`` is torch's ``weight``.
 """
 
 from __future__ import annotations
@@ -32,3 +34,42 @@ def lstm_head_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
         "input_gates.bias": _t(params["input_gates"]["bias"]),
         "recurrent_kernel": _t(params["recurrent_kernel"]),
     }
+
+
+def i3d_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`ctc_tpu_torch.models.i3d.InceptionI3d` from
+    the ``params`` / ``batch_stats`` trees of ``ctc_tpu``'s
+    ``InceptionI3d`` (the inverse of its ``convert_torch_state_dict``);
+    ``num_batches_tracked`` starts at 0."""
+    out = {}
+
+    def walk(p, s, prefix):
+        for name, node in p.items():
+            if name == "conv3d":
+                out[prefix + "conv3d.weight"] = _t(
+                    node["kernel"]).permute(4, 3, 0, 1, 2).contiguous()
+                if "bias" in node:
+                    out[prefix + "conv3d.bias"] = _t(node["bias"])
+            elif name == "bn":
+                stats = s["bn"]
+                out[prefix + "bn.weight"] = _t(node["scale"])
+                out[prefix + "bn.bias"] = _t(node["bias"])
+                out[prefix + "bn.running_mean"] = _t(stats["mean"])
+                out[prefix + "bn.running_var"] = _t(stats["var"])
+                out[prefix + "bn.num_batches_tracked"] = torch.zeros(
+                    (), dtype=torch.long)
+            else:
+                walk(node, s.get(name, {}), prefix + name + ".")
+
+    walk(params, batch_stats, "")
+    return out
+
+
+def i3d_lstm_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`ctc_tpu_torch.models.i3d_lstm.I3DLSTM`
+    from the trees of ``ctc_tpu``'s ``I3DLSTM`` (subtrees ``i3d`` and
+    ``head``)."""
+    backbone = i3d_from_jax(params["i3d"], batch_stats.get("i3d", {}))
+    head = lstm_head_from_jax(params["head"], batch_stats["head"])
+    return {**{"i3d." + k: v for k, v in backbone.items()},
+            **{"head." + k: v for k, v in head.items()}}

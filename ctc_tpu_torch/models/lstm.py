@@ -7,6 +7,12 @@
 * The recurrence is a fused-gate LSTM cell whose input-to-gates product for
   all T is one matmul; gate order is i, f, g, o (torch.nn.LSTMCell).
 * Parameters start as flax's do: ``lecun_normal`` kernels, zero biases.
+* ``dtype`` (``--compute-dtype bf16``) runs the feature projection and the
+  input-to-gates product in that dtype, bias add included, as flax's
+  ``Dense(dtype=...)`` does, and casts each back to float32: by explicit
+  casts, not ``torch.autocast``, which would also cast the recurrent
+  matmul.  Parameters, BatchNorm, the recurrent matmul and the h / c carry
+  stay float32.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ctc_tpu_torch.parallel.collectives import pmean, world_size
@@ -28,6 +35,15 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype | None) -> torch.Tensor:
+    """``lin(x)`` computed in ``dtype`` (None: as it is), as float32."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype),
+                    lin.bias.to(dtype)).float()
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -102,14 +118,16 @@ class FeatureHead(nn.Module):
     """Linear -> TemporalBatchNorm -> ReLU -> Dropout over ``[T, B, in]``."""
 
     def __init__(self, in_features: int, features: int,
-                 dropout_rate: float = 0.3):
+                 dropout_rate: float = 0.3,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.proj = nn.Linear(in_features, features)
         self.bn = TemporalBatchNorm(features)
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
 
     def forward(self, x, *, train: bool, generator=None):
-        x = torch.relu(self.bn(self.proj(x), train=train))
+        x = torch.relu(self.bn(dense(self.proj, x, self.dtype), train=train))
         if train:
             x = dropout(x, self.dropout_rate, generator)
         return x
@@ -120,14 +138,18 @@ class LSTMHead(nn.Module):
 
     Input ``[T, B, in_features]`` clip features; output ``[T, B, hidden]``
     hidden states (the per-class logits the losses read).
-    :func:`sync_batch_norm` syncs its BatchNorm over a process group.
+    :func:`sync_batch_norm` syncs its BatchNorm over a process group;
+    ``dtype`` is the two matmuls' compute dtype (see above).
     """
 
     def __init__(self, in_features: int, hidden: int,
-                 dropout_rate: float = 0.3):
+                 dropout_rate: float = 0.3,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.hidden = hidden
-        self.feature_head = FeatureHead(in_features, hidden, dropout_rate)
+        self.dtype = dtype
+        self.feature_head = FeatureHead(in_features, hidden, dropout_rate,
+                                        dtype)
         self.input_gates = nn.Linear(hidden, 4 * hidden)
         # [hidden, 4 * hidden], the orientation of h @ w_h
         self.recurrent_kernel = nn.Parameter(torch.empty(hidden, 4 * hidden))
@@ -144,7 +166,8 @@ class LSTMHead(nn.Module):
                 generator: torch.Generator | None = None):
         _, batch, _ = feats.shape
         v = self.feature_head(feats, train=train, generator=generator)
-        xw = self.input_gates(v)  # [T, B, 4H], one matmul for all T
+        # [T, B, 4H], one matmul for all T
+        xw = dense(self.input_gates, v, self.dtype)
         zeros = feats.new_zeros((batch, self.hidden))
         h = zeros if h0 is None else h0
         c = zeros if c0 is None else c0

@@ -59,14 +59,17 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
 class GradExchange:
     """The data axis's exchange for a model replicated on every rank.
 
-    On construction each parameter's ``.grad`` becomes a view of
-    ``flat[:n_grad]``.  A train step calls :meth:`begin` before its
-    backward (after the optimizer has cleared or kept its gradient sums)
-    and :meth:`finish` after it: ``flat`` then holds this batch's local
-    gradient, the running statistics and the metrics; one all-reduce and a
-    division by the rank count make each their mean over the ranks, and
-    the gradient sums kept from earlier batches are added back, as
-    ``MultiSteps`` adds a pmean'd gradient to its sum.
+    On construction each parameter that trains has its ``.grad`` made a
+    view of ``flat[:n_grad]``; a frozen module (a frozen I3D backbone,
+    whose parameters require no gradient) keeps its parameters and its
+    running statistics out of the buffer.  A train step calls
+    :meth:`begin` before its backward (after the optimizer has cleared or
+    kept its gradient sums) and :meth:`finish` after it: ``flat`` then
+    holds this batch's local gradient, the running statistics and the
+    metrics; one all-reduce and a division by the rank count make each
+    their mean over the ranks, and the gradient sums kept from earlier
+    batches are added back, as ``MultiSteps`` adds a pmean'd gradient to
+    its sum.
     """
 
     #: metric slots in the buffer: a train step's loss, top-1 and top-5
@@ -75,8 +78,12 @@ class GradExchange:
     def __init__(self, model: torch.nn.Module, group):
         self.group = group
         self.world = world_size(group)
-        self.params = list(model.parameters())
-        self.stats = [b for b in model.buffers() if b.is_floating_point()]
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.stats = [b for m in model.modules()
+                      if any(p.requires_grad
+                             for p in m.parameters(recurse=False))
+                      for b in m.buffers(recurse=False)
+                      if b.is_floating_point()]
         first = self.params[0]
         self.n_grad = sum(p.numel() for p in self.params)
         self.n_stats = sum(b.numel() for b in self.stats)

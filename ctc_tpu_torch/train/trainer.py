@@ -18,6 +18,10 @@ process group, :mod:`ctc_tpu_torch.parallel`).
   as one unit (:mod:`ctc_tpu_torch.train.graphs`): one CUDA graph replay
   on the card; the sub-K remainder and groups of unequal shapes run single
   steps.
+* ``i3d_optimizer`` (pixels mode, :class:`ctc_tpu_torch.models.I3DLSTM`)
+  splits the parameters as ``ctc_tpu``'s ``multi_transform`` does: Adam on
+  the head, SGD (:class:`ctc_tpu_torch.train.optim.TorchStyleSGD`) on the
+  backbone under ``finetune``, nothing on a frozen backbone.
 * Dropout draws its masks from the trainer's own ``torch.Generator``
   (on a data mesh, seeded apart on each rank).
 * Everything runs on one explicit device, ``cuda`` unless the caller asks
@@ -53,7 +57,11 @@ from ctc_tpu_torch.train.metrics import (
     transition_accuracy,
     transition_recall,
 )
-from ctc_tpu_torch.train.optim import TorchStyleAdam, torch_style_adam
+from ctc_tpu_torch.train.optim import (
+    TorchStyleAdam,
+    TorchStyleSGD,
+    torch_style_adam,
+)
 from ctc_tpu_torch.train.schedule import step_decay_schedule
 
 
@@ -91,8 +99,9 @@ class TrainState:
 
 def _model_input(feats):
     """Batch-major features ``[B, T, F]`` -> the time-major ``[T, B, F]``
-    the LSTM head scans."""
-    return feats.transpose(0, 1)
+    the LSTM head scans; pixel clips ``[B, T, stack, h, w, 3]`` pass
+    through batch-major (the pixels model takes its own layout)."""
+    return feats.transpose(0, 1) if feats.dim() == 3 else feats
 
 
 def _head_logits(logits_last, batch, loss_kind):
@@ -246,6 +255,13 @@ class Trainer:
     ``transition_metrics`` adds the eval step's DTW transition metrics;
     ``joint_object_weight`` scales the joint loss's object term.
 
+    ``i3d_optimizer`` (``{"lr", "momentum", "weight_decay", "finetune"}``,
+    ``ctc_tpu``'s dict) trains the pixels model: Adam on the head; with
+    ``finetune``, SGD on the backbone (parameters named ``i3d.*``) from
+    the same step-decay schedule at its own ``lr``; without it the
+    backbone is in no optimizer group, and on a mesh it stays out of the
+    gradient exchange.
+
     ``accum_grad`` k > 1 sums the gradients of k batches and steps on the
     k-th; ``skip_nonfinite`` drops a non-finite update and keeps the
     parameters and the optimizer's state; ``grad_norm_freq`` n > 0 prints
@@ -283,6 +299,7 @@ class Trainer:
         joint_object_weight: float = 1.0,
         mesh=None,
         model_parallel: int = 1,
+        i3d_optimizer: dict | None = None,
     ):
         self.mesh = mesh
         self.device = resolve_device(mesh.devices[0] if mesh is not None
@@ -297,6 +314,12 @@ class Trainer:
         opt_steps_per_epoch = max(effective_steps // max(accum_grad, 1), 1)
         self.schedule = step_decay_schedule(lr, lr_decay_epochs,
                                             opt_steps_per_epoch)
+        self.i3d_optimizer = i3d_optimizer
+        self.i3d_schedule = None
+        if i3d_optimizer is not None and i3d_optimizer.get("finetune"):
+            self.i3d_schedule = step_decay_schedule(
+                i3d_optimizer.get("lr", lr), lr_decay_epochs,
+                opt_steps_per_epoch)
         self.chain = {"accum_grad": accum_grad,
                       "skip_nonfinite": skip_nonfinite,
                       "grad_norm_freq": grad_norm_freq}
@@ -415,14 +438,33 @@ class Trainer:
         else:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
-        opt = torch_style_adam(self.model.parameters(), self.weight_decay,
-                               **self.chain)
+        opt = self._optimizer()
         state = TrainState(model=self.model, optimizer=opt)
         if self.mesh is not None:
             from ctc_tpu_torch.parallel import replicate
 
             state = replicate(state, self.mesh)
         return state
+
+    def _optimizer(self) -> TorchStyleAdam:
+        """Adam on every parameter that trains; with ``i3d_optimizer``,
+        Adam on the head and, under ``finetune``, SGD on the backbone."""
+        from ctc_tpu_torch.models.i3d_lstm import BACKBONE
+
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        sgd = None
+        if self.i3d_optimizer is not None:
+            if self.i3d_schedule is not None:
+                opts = self.i3d_optimizer
+                sgd = TorchStyleSGD(
+                    [p for n, p in named if n.startswith(BACKBONE)],
+                    self.i3d_schedule, momentum=opts.get("momentum", 0.9),
+                    weight_decay=opts.get("weight_decay",
+                                          self.weight_decay))
+            named = [(n, p) for n, p in named if not n.startswith(BACKBONE)]
+        return torch_style_adam([p for _, p in named], self.weight_decay,
+                                sgd=sgd, **self.chain)
 
     def _place(self, batch):
         """This rank's rows of a host batch (all of it without a mesh)."""

@@ -120,21 +120,19 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
         main(TINY + ["--epochs", "1", "--cache-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize(
-    "flags,item",
-    [
-        (["--compute-dtype", "bf16"], "item 16"),
-        (["--dataset", "charades_pixels"], "item 12"),
-        pytest.param(["--dataset", "charades_ctc_next_pred"], "item 12",
-                     id="charades-without-features-dir-item 12"),
-        (["--rgb-pretrained-weights", "rgb_i3d.pt"], "item 12"),
-    ],
-    ids=lambda x: x if isinstance(x, str) else x[0].lstrip("-"),
-)
-def test_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(TINY + ["--epochs", "1", "--device", "cpu",
-                     "--cache-dir", str(tmp_path)] + flags)
+@pytest.mark.parametrize("impl,ok", [
+    (None, True), ("torch", True), ("cuda", True), ("pallas", False),
+    ("xla", False)])
+def test_lattice_impl_must_be_torch_or_cuda(tmp_path, impl, ok):
+    """--lattice-impl takes the port's two implementations (or none: by
+    device) and refuses any other at parse time, ctc_tpu's included."""
+    argv = TINY + ["--cache-dir", str(tmp_path)] + (
+        ["--lattice-impl", impl] if impl else [])
+    if ok:
+        assert config.parse(argv).lattice_impl == impl
+    else:
+        with pytest.raises(ValueError, match="--lattice-impl"):
+            config.parse(argv)
 
 
 def _score_rows(run_dir):
@@ -325,8 +323,10 @@ def test_evaluate_writes_own_video_predictions(tmp_path, capsys,
 
 
 def test_evaluate_own_video_with_frames_names_item_12(tmp_path, capsys):
-    """The own-video loaders extract features from frames on disk (item
-    12): ctc_tpu's message reports it and the evaluation goes on."""
+    """The own-video loaders extract features from the frames on disk
+    (ROADMAP item 12, ported): with a random backbone they warn as
+    ctc_tpu's do; frames that are not JPEGs fail to decode, the message
+    says so, as ctc_tpu's does, and the evaluation goes on."""
     frames = tmp_path / "my" / "YUME0"
     frames.mkdir(parents=True)
     for j in range(600):
@@ -336,7 +336,8 @@ def test_evaluate_own_video_with_frames_names_item_12(tmp_path, capsys):
                              ["--rgb-my-data", str(tmp_path / "my"),
                               "--temporal", "10", "--gap", "2",
                               "--num-trans", "2"])
-    assert "own-video eval skipped:" in out and "item 12" in out
+    assert "WARNING: --rgb-pretrained-weights not set" in out
+    assert "own-video eval skipped: cannot identify image file" in out
     assert np.isfinite(metrics["video_mAP"])
     assert not (tmp_path / "run" / "test" / "myvideo_predictions.csv").exists()
 

@@ -12,6 +12,7 @@ sits near Adam's eps aside), and the c_class windows whose blank-CTC loss
 is the sentinel's."""
 
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -32,7 +33,6 @@ from ctc_tpu.train.trainer import torch_style_adam as jax_adam
 from ctc_tpu_torch import config
 from ctc_tpu_torch.cli import exe
 from ctc_tpu_torch.cli.main import get_dataset, main
-from ctc_tpu_torch.data import features
 from ctc_tpu_torch.data.charades_corpus import write_corpus
 from ctc_tpu_torch.losses.blank import ctc_loss as blank_loss
 from ctc_tpu_torch.losses.blank import min_frames
@@ -170,22 +170,45 @@ def test_missing_features_file_raises(corpus, tmp_path, dataset):
 
 @pytest.mark.parametrize("dataset", ["charades_ctc_next_pred",
                                      "charades_ver2_c_class"])
-def test_extraction_without_features_dir_raises(corpus, tmp_path, dataset):
+def test_extraction_without_features_dir_raises(corpus, tmp_path, dataset,
+                                                monkeypatch):
+    """Without --features-dir a loader no longer raises: it extracts its
+    features (ROADMAP item 12, ported) with the frozen I3D into
+    ``<cache>/<key>_<split>``; here through a stub extractor that records
+    the windows it is given (the I3D's own extraction is held to
+    ctc_tpu's in tests/test_torch_pixels.py).  The corpus's frames are
+    empty files, so decoding them raises."""
+    from ctc_tpu_torch.data.loaders import _common
+
     cfg, _ = _cfgs(corpus, tmp_path, ["--dataset", dataset])
     cfg.features_dir = ""
+    cfg.device = "cpu"
+    seen = []
+
+    def extract(data, extractor, out_dir, **kw):
+        seen.append((os.path.relpath(out_dir, cfg.cache), kw))
+        n, t = len(data["ids"]), len(data["rgb_image_paths"][0])
+        return np.zeros((n, t, FEAT), np.float32)
+
+    monkeypatch.setattr(_common, "extract_split_features", extract)
     mod = importlib.import_module(f"ctc_tpu_torch.data.loaders.{dataset}")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    train, val = mod.get(cfg)
+    assert len(train) and len(val)
+    assert all(not b["feats"].any() for b in train)
+    key = {"charades_ctc_next_pred": "features",
+           "charades_ver2_c_class": "features_cclass"}[dataset]
+    assert [d for d, _ in seen] == [f"{key}_train", f"{key}_val"]
+    assert seen[0][1] == {"gap": 2, "inputsize": 224}
+    monkeypatch.undo()
+    with pytest.raises(OSError, match="cannot identify image file"):
         mod.get(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        features.I3DFeatureExtractor({})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        features.extract_split_features({}, None, str(tmp_path), gap=2)
 
 
 @pytest.mark.parametrize("dataset", OWN_VIDEO)
 def test_own_video_loaders(tmp_path, dataset):
     """No frames: ctc_tpu's empty windows and no table.  Frames on disk:
-    the features would be extracted, which raises (item 12)."""
+    the features are extracted from them (ROADMAP item 12, ported); these
+    frames are empty files, so decoding them raises, as in ctc_tpu."""
     argv = GEOMETRY + ["--rgb-my-data", str(tmp_path / "my"),
                        "--cache-dir", str(tmp_path / "cache")]
     mod = importlib.import_module(f"ctc_tpu_torch.data.loaders.{dataset}")
@@ -197,8 +220,8 @@ def test_own_video_loaders(tmp_path, dataset):
     d.mkdir(parents=True)
     for j in range(600):
         open(d / f"YUME0-{j + 1:06d}.jpg", "wb").close()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mod.get(config.parse(argv))
+    with pytest.raises(OSError, match="cannot identify image file"):
+        mod.get(config.parse(argv + ["--device", "cpu"]))
 
 
 def test_exe_preset_is_ctc_tpus():
@@ -385,8 +408,12 @@ def test_cli_refuses_cuda_without_a_card(corpus, tmp_path, monkeypatch):
         main(RUNS["ver2-binary"][1] + argv + ["--epochs", "1"])
 
 
-def test_exe_without_features_dir_refuses_extraction(tmp_path):
-    """The preset names I3D weights; without cached features they would be
-    read to extract features (item 12)."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        exe.run(["--device", "cpu", "--cache-dir", str(tmp_path)])
+def test_exe_without_features_dir_refuses_extraction(corpus, tmp_path):
+    """The preset names I3D weights; without cached features they are read
+    to extract features (ROADMAP item 12, ported), so a run whose preset
+    weights file is missing stops there, naming it, before any step."""
+    _, argv = _run_argv(corpus, tmp_path, "exe-noblank")
+    i = argv.index("--features-dir")
+    argv = argv[:i] + argv[i + 2:]
+    with pytest.raises(FileNotFoundError, match="rgb_i3d_pretrained.pt"):
+        exe.run(argv + ["--epochs", "1"])
