@@ -21,7 +21,10 @@ one rank, one NCCL rank with its all-reduces in a K-step CUDA graph, four
 class shards, 2 ranks x 4 seq shards, two CLI processes joined by
 --num-hosts 2), runs pixels mode at full width on a corpus of JPEG frames
 (the I3D in every step, frozen, finetuned, chunked and in bf16; feature
-extraction; bf16 on the main path; step times, decode and copy), checks
+extraction; bf16 on the main path; step times, decode and copy), runs
+the ST-graph model and criterion at full width through the blank lattice
+kernels (card against CPU and against a float64 run, Adam steps, the
+gradient tools, the step's times), checks
 that each run went through its kernels, profiles each train
 step eagerly and as a graph and host batches fed plainly and through
 ``device_prefetch``, and times each
@@ -43,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2681,6 +2685,345 @@ def phase_parallel(work, card):
     return launches
 
 
+# the ST-graph (models/stgraph.py) and the gradient tools (ops/grad_tools.py)
+# at full width: the I3D feature width, ctc_tpu's s / o / v classes and rank
+# (hidden 1000), msg_n = T and B of the main path; o / v label sequences of
+# STGRAPH_L, so the lattice is S = 3 (s) and S = 9 (o, v) cells wide
+STGRAPH_FEAT = 1024
+STGRAPH_CLASSES = (16, 38, 33)  # s, o, v
+STGRAPH_RANK = 5
+STGRAPH_L = 4
+STGRAPH_TRAIN_STEPS = 5  # Adam updates of the training check
+# the loss is ~1e10-1e12 at init (the mean-field iterations compound the
+# pair energies over msg_n = 10): at lr 1e-3 it swung up and down over 6
+# steps on the CPU (B = 32), at 1e-4 it fell at each
+STGRAPH_LR = 1e-4
+STGRAPH_WINDOWS = 5  # timed windows of the step
+STGRAPH_WINDOW_STEPS = 4
+STGRAPH_PAIR_ROWS = ("blank_lattice_forward", "blank_lattice_backward")
+# At init the sequences reach ~4e11 (the mean-field iterations compound
+# the pair energies), so the lattice's posteriors turn on differences at
+# f32's rounding there: f32 gradients, on the card or the CPU, miss the
+# exact (float64) ones by up to a few percent of a tensor's largest
+# element.  Each f32 side is held to the exact gradient: each tensor's max
+# |dev| over its largest element, the worst and the median over the
+# tensors, at 2.0x / 2.3x the card's readings (B = 256: 4.95% / 0.523% on
+# the card and on the CPU alike; 3.8% / 0.28% on the CPU at B = 32).
+STGRAPH_GRAD_MAX = 0.10
+STGRAPH_GRAD_MEDIAN = 0.012
+
+
+def close_scaled(name, got, want, rtol, atol) -> float:
+    """``check_close`` with ``atol`` scaled by the largest ``|want|`` (at
+    least 1), as ``tests/test_torch_stgraph.py`` holds the heads and the
+    gradients; returns the max |dev| over that scale."""
+    scale = max(1.0, float(want.abs().max()))
+    check_close(name, got, want, rtol, atol * scale)
+    return max_dev(got, want) / scale
+
+
+def stgraph_batch(device):
+    """Features ``[T, B, 1024]`` and targets from a seed: s in [1, 16),
+    o / v sequences of 4 labels in [1, C), lengths in [1, 4]."""
+    import torch
+
+    T, B, _ = MAIN_SHAPE
+    s, o, v = STGRAPH_CLASSES
+    gen = torch.Generator().manual_seed(11)
+    batch = (torch.randn((T, B, STGRAPH_FEAT), generator=gen),
+             torch.randint(1, s, (B,), generator=gen),
+             torch.randint(1, o, (B, STGRAPH_L), generator=gen),
+             torch.randint(1, v, (B, STGRAPH_L), generator=gen),
+             torch.randint(1, STGRAPH_L + 1, (B,), generator=gen))
+    return [x.to(device) for x in batch]
+
+
+def stgraph_model(device, dropout_rate=0.0):
+    import torch
+
+    from ctc_tpu_torch.models import STGraphBase
+
+    s, o, v = STGRAPH_CLASSES
+    model = STGraphBase(STGRAPH_FEAT, s, o, v, num_low_rank=STGRAPH_RANK,
+                        dropout_rate=dropout_rate)
+    model.reset_parameters(torch.Generator().manual_seed(13))
+    return model.to(device)
+
+
+def multi_hot(labels, lengths, classes):
+    """``[B, C]`` multi-hot of each sample's first ``length`` labels
+    (``gtmat`` gives the padding, marked -1, a zero row)."""
+    import torch
+
+    from ctc_tpu_torch.models.stgraph import gtmat
+
+    b, n = labels.shape
+    valid = torch.arange(n, device=labels.device)[None, :] < lengths[:, None]
+    rows = gtmat((b * n, classes), torch.where(valid, labels, -1).reshape(-1))
+    return rows.reshape(b, n, classes).amax(dim=1)
+
+
+def stgraph_exact(heads, s_t, o_t, v_t, lengths):
+    """``STGraphCriterion(msg_n=T)``'s sequences and loss in the heads'
+    dtype (float64 here) through the plain blank lattice, which takes any
+    float dtype (the kernels and the checked entry points take float32)."""
+    import torch
+
+    from ctc_tpu_torch.losses.blank import blank_emissions_and_skip
+    from ctc_tpu_torch.models import mean_field_messages
+    from ctc_tpu_torch.ops.blank_lattice_cuda import BlankLatticeNLL
+
+    T = MAIN_SHAPE[0]
+    seqs = mean_field_messages(heads, msg_n=T)
+    in_len = torch.full_like(lengths, T, dtype=torch.int32)
+    loss = 0.0
+    for seq, tgt, tlen in zip(seqs, (s_t[:, None], o_t, v_t),
+                              (torch.ones_like(lengths), lengths, lengths)):
+        em, skip = blank_emissions_and_skip(seq, tgt, 0)
+        tlen = tlen.to(torch.int32)
+        nll = BlankLatticeNLL.apply(em, skip.to(torch.uint8), in_len, tlen,
+                                    False)
+        loss = loss + (nll / tlen.clamp(min=1).to(nll.dtype)).mean()
+    return (*seqs, loss)
+
+
+def grad_devs(got, want) -> dict:
+    """Each tensor's max |dev| over its largest element (at least 1):
+    the worst tensor and the median."""
+    import statistics
+
+    devs = {n: max_dev(got[n].double(), w) / max(1.0, float(w.abs().max()))
+            for n, w in want.items()}
+    worst = max(devs, key=devs.get)
+    return {"worst": devs[worst], "worst_tensor": worst,
+            "median": statistics.median(devs.values())}
+
+
+def stgraph_tools_run(device):
+    """The gradient tools on the heads (leaves: the tools' backward reads
+    the cotangents, never the heads' values): balance_labels on the o / v
+    unary heads (the batch's multi-hot targets, counted once),
+    equalize_grad_norm over the two, the scene head blocked, then the
+    backward of every head against seeded cotangents; then
+    verbose_gradients on o / v through the criterion, eagerly, its lines
+    caught.  Returns the heads' gradients and the printed norms."""
+    import torch
+
+    from ctc_tpu_torch.models import STGraphCriterion
+    from ctc_tpu_torch.ops import grad_tools as gt
+
+    T, B, _ = MAIN_SHAPE
+    feat, s_t, o_t, v_t, lengths = stgraph_batch(device)
+    with torch.no_grad():
+        leaves = {k: h.requires_grad_() for k, h in
+                  stgraph_model(device)(feat).items()}
+    gen = torch.Generator().manual_seed(17)
+    cots = {k: torch.randn(h.shape, generator=gen).to(device)
+            for k, h in leaves.items()}
+    heads = dict(leaves)
+    for k, c in zip("ov", STGRAPH_CLASSES[1:]):
+        hot = multi_hot(o_t if k == "o" else v_t, lengths, c)
+        state = gt.update_balance(gt.BalanceState.create(c, device=device),
+                                  hot)
+        targets = hot[None].expand(T, B, c).reshape(T * B, c)
+        heads[k] = gt.balance_labels(heads[k].reshape(T * B, c), targets,
+                                     state).reshape(T, B, c)
+    heads["o"], heads["v"] = gt.equalize_grad_norm(heads["o"], heads["v"])
+    heads["s"] = gt.block_gradient(heads["s"])
+    sum((heads[k] * cots[k]).sum() for k in heads).backward()
+    grads = {k: h.grad for k, h in leaves.items()}
+    # verbose_gradients, its lines kept off the smoke's stdout
+    heads = {k: h.detach().requires_grad_() for k, h in leaves.items()}
+    heads["o"], heads["v"] = gt.verbose_gradients(heads["o"], heads["v"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        STGraphCriterion(msg_n=T)(heads, s_t, o_t, v_t,
+                                  lengths)[3].backward()
+    norms = [float(line.rsplit(" ", 1)[1])
+             for line in out.getvalue().splitlines()]
+    return grads, norms
+
+
+def phase_stgraph(card):
+    """The ST-graph model and criterion on the card at full width, through
+    the blank lattice kernels (rows 5-6): one criterion call launches the
+    forward 3 times (s, o, v), its backward the backward 3 times; heads,
+    mean-field sequences and loss against the CPU (dropout off), and every
+    parameter's gradient, on the card and on the CPU, against the exact
+    float64 run; Adam steps with dropout 0.3 lower the loss; the gradient
+    tools against the CPU; the train step's time, device time, kernels and
+    the lattice's share of the device time.  Returns the training run's
+    launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctc_tpu_torch.models import STGraphCriterion
+    from ctc_tpu_torch.train.optim import TorchStyleAdam
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, B, _ = MAIN_SHAPE
+    crit = STGraphCriterion(msg_n=T)
+
+    # card against CPU and both against the exact (float64) run, dropout
+    # off; the launches of one call
+    out = {}
+    for run in ("cpu", "cuda", "exact"):
+        dev = "cpu" if run == "cpu" else "cuda"
+        feat, *tgts = stgraph_batch(dev)
+        model = stgraph_model(dev)
+        if run == "exact":
+            model.double()
+            feat = feat.double()
+        heads = model(feat)
+        if run == "cuda":
+            reset_counts()
+        *seqs, loss = (stgraph_exact(heads, *tgts) if run == "exact"
+                       else crit(heads, *tgts))
+        if run == "cuda":
+            torch.cuda.synchronize()
+            forward = read_counts()
+        loss.backward()
+        if run == "cuda":
+            torch.cuda.synchronize()
+            both = read_counts()
+            if forward != expect_counts(blank=(3, 0)):
+                fail(f"stgraph: one criterion call launched {forward}, "
+                     f"expected rows 5-6 at (3, 0)")
+            if both != expect_counts(blank=(3, 3)):
+                fail(f"stgraph: criterion and backward launched {both}, "
+                     f"expected rows 5-6 at (3, 3)")
+        out[run] = ({k: h.detach().cpu() for k, h in heads.items()},
+                    [s.detach().cpu() for s in seqs], float(loss.detach()),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+        del model, heads, seqs, loss
+    (h_cpu, s_cpu, l_cpu, g_cpu), (h_gpu, s_gpu, l_gpu, g_gpu) = (
+        out["cpu"], out["cuda"])
+    g_exact = {n: g.double() for n, g in out["exact"][3].items()}
+    if not abs(l_gpu - l_cpu) <= LOSS_ATOL + LOSS_RTOL * abs(l_cpu):
+        fail(f"stgraph loss card {l_gpu} vs cpu {l_cpu}")
+    devs = {"heads": max(close_scaled(f"stgraph head {k}", h_gpu[k],
+                                      h_cpu[k], STEP_LOSS_RTOL,
+                                      STEP_PARAM_ATOL) for k in h_cpu),
+            "sequences": max(close_scaled(f"stgraph sequence {i}", g, w,
+                                          STEP_LOSS_RTOL, STEP_PARAM_ATOL)
+                             for i, (g, w) in enumerate(zip(s_gpu, s_cpu))),
+            "grads_card_vs_exact": grad_devs(g_gpu, g_exact),
+            "grads_cpu_vs_exact": grad_devs(g_cpu, g_exact),
+            "grads_card_vs_cpu": grad_devs(g_gpu, {
+                n: g.double() for n, g in g_cpu.items()})}
+    for side in ("card", "cpu"):
+        d = devs[f"grads_{side}_vs_exact"]
+        if d["worst"] > STGRAPH_GRAD_MAX or d["median"] > STGRAPH_GRAD_MEDIAN:
+            fail(f"stgraph: the {side}'s f32 gradients miss the exact ones "
+                 f"by {d}, beyond {STGRAPH_GRAD_MAX} worst / "
+                 f"{STGRAPH_GRAD_MEDIAN} median")
+    emit({"phase": "stgraph_vs_cpu", "shape_TBD": [T, B, STGRAPH_FEAT],
+          "classes_sov": list(STGRAPH_CLASSES), "rank": STGRAPH_RANK,
+          "label_len": STGRAPH_L, "loss_cuda": l_gpu, "loss_cpu": l_cpu,
+          "loss_exact": out["exact"][2],
+          "max_abs_dev_over_scale": devs,
+          "tolerance": {"loss": [LOSS_RTOL, LOSS_ATOL],
+                        "heads_sequences": [STEP_LOSS_RTOL,
+                                            STEP_PARAM_ATOL],
+                        "atol_scaled_by": "max(1, largest |element|)",
+                        "grads_vs_exact": [STGRAPH_GRAD_MAX,
+                                           STGRAPH_GRAD_MEDIAN]}})
+    del out, h_cpu, s_cpu, g_cpu, h_gpu, s_gpu, g_gpu, g_exact
+
+    # training: Adam on one device-resident batch, dropout 0.3
+    feat, *tgts = stgraph_batch("cuda")
+    model = stgraph_model("cuda", dropout_rate=0.3)
+    opt = TorchStyleAdam(list(model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def train_step():
+        opt.begin(count)
+        *_, loss = crit(model(feat, train=True, generator=gen), *tgts)
+        loss.backward()
+        opt.step(count, STGRAPH_LR)
+        count.add_(1)
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [float(train_step()) for _ in range(STGRAPH_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n = STGRAPH_TRAIN_STEPS + 1
+    if launches != expect_counts(blank=(3 * n, 3 * n)):
+        fail(f"stgraph: {n} train steps launched {launches}, expected rows "
+             f"5-6 at ({3 * n}, {3 * n})")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"stgraph: the loss did not fall over {STGRAPH_TRAIN_STEPS} "
+             f"Adam steps: {losses}")
+
+    def steps(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            train_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    step_ms = spread([steps(STGRAPH_WINDOW_STEPS)
+                      for _ in range(STGRAPH_WINDOWS)])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STGRAPH_WINDOW_STEPS):
+            train_step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation()]
+    device_ms = sum(e.duration_ns() for e in events) / 1e6
+    rows = {k: [0, 0.0] for k in STGRAPH_PAIR_ROWS}
+    for e in events:
+        key = lattice_key(e.name())
+        if key is not None:
+            if key not in rows:
+                fail(f"stgraph: the profile holds lattice kernel {key}")
+            rows[key][0] += 1
+            rows[key][1] += e.duration_ns() / 1e6
+    per = STGRAPH_WINDOW_STEPS
+    if any(c != 3 * per for c, _ in rows.values()):
+        fail(f"stgraph: the profiled steps ran rows 5-6 {rows}, expected "
+             f"3 each a step")
+    emit({"phase": "stgraph_train", "losses": losses,
+          "launches": {k: launches[k] for k in STGRAPH_PAIR_ROWS},
+          "step_ms": step_ms, "device_ms_per_step": device_ms / per,
+          "device_busy_share": device_ms / window_ms,
+          "kernels_per_step": len(events) / per,
+          "rows_5_6_ms_per_step": {k: ms / per for k, (_, ms) in
+                                   rows.items()},
+          "rows_5_6_share": sum(ms for _, ms in rows.values()) / device_ms,
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": card})
+    del model, opt, feat, tgts
+
+    # the gradient tools, card against CPU
+    g_gpu, n_gpu = stgraph_tools_run("cuda")
+    g_cpu, n_cpu = stgraph_tools_run("cpu")
+    if g_gpu["s"] is not None or g_cpu["s"] is not None:
+        fail("stgraph tools: block_gradient let a gradient reach the scene "
+             "head")
+    tool_dev = max(close_scaled(f"stgraph tools head grad {k}",
+                                g_gpu[k].cpu(), w, GRAD_RTOL, GRAD_ATOL)
+                   for k, w in g_cpu.items() if w is not None)
+    if len(n_gpu) != 2 or not all(
+            abs(a - b) <= GRAD_RTOL * abs(b) for a, b in zip(n_gpu, n_cpu)):
+        fail(f"stgraph tools: verbose_gradients printed {n_gpu} on the "
+             f"card, {n_cpu} on the CPU")
+    emit({"phase": "stgraph_tools",
+          "head_grads_max_abs_dev_over_scale": tool_dev,
+          "verbose_norms_cuda": n_gpu, "verbose_norms_cpu": n_cpu,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_step_vs_cpu():
     """One train step on the card (kernels) against the same step on the
     CPU (plain lattice), from the same weights and batch, dropout off."""
@@ -4053,6 +4396,7 @@ def main() -> None:
         phase_trainer_features(work, card, corpus_paths)
         parallel_launches = phase_parallel(work, card)
         pixels_launches = phase_pixels(work, card)
+    stgraph_launches = phase_stgraph(card)
     phase_step_vs_cpu()
     phase_seq_vs_plain()
     phase_profile()
@@ -4104,6 +4448,9 @@ def main() -> None:
             # the pixels phase's runs (the I3D's loss)
             "pixels_launches": {run: n[kname] for run, n in
                                 pixels_launches.items() if n[kname]},
+            # the ST-graph's Adam steps (rows 5-6 only)
+            **({"stgraph_launches": stgraph_launches[kname]}
+               if kname in STGRAPH_PAIR_ROWS else {}),
             # and in each run of the parallel phase, rank by rank
             "parallel_launches": {run: [n[kname] for n in ranks]
                                   for run, ranks in parallel_launches.items()

@@ -1,10 +1,12 @@
-"""Models: the LSTM head over I3D clip features, the I3D backbone and the
-pixels model that joins them."""
+"""Models: the LSTM head over I3D clip features, the I3D backbone, the
+pixels model that joins them, and the ST-graph energy model and its
+criterion."""
 
 from ctc_tpu_torch.models.convert import (
     i3d_from_jax,
     i3d_lstm_from_jax,
     lstm_head_from_jax,
+    stgraph_from_jax,
 )
 from ctc_tpu_torch.models.i3d import (
     InceptionI3d,
@@ -19,8 +21,17 @@ from ctc_tpu_torch.models.lstm import (
     TemporalBatchNorm,
     sync_batch_norm,
 )
+from ctc_tpu_torch.models.stgraph import (
+    MessageStore,
+    STGraphBase,
+    STGraphCriterion,
+    mean_field_messages,
+    winsmooth,
+)
 
 __all__ = ["FeatureHead", "I3DLSTM", "InceptionI3d", "InceptionModule",
-           "LSTMHead", "TemporalBatchNorm", "Unit3D", "full_f32_precision",
+           "LSTMHead", "MessageStore", "STGraphBase", "STGraphCriterion",
+           "TemporalBatchNorm", "Unit3D", "full_f32_precision",
            "i3d_from_jax", "i3d_lstm_from_jax", "lstm_head_from_jax",
-           "sync_batch_norm"]
+           "mean_field_messages", "stgraph_from_jax", "sync_batch_norm",
+           "winsmooth"]

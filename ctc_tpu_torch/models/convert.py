@@ -1,5 +1,5 @@
-"""Carry ``ctc_tpu`` weights into the port: the LSTM head, the I3D backbone
-and the pixels model that joins them.
+"""Carry ``ctc_tpu`` weights into the port: the LSTM head, the I3D backbone,
+the pixels model that joins them, and the ST-graph model.
 
 The flax trees arrive as nested dicts of numpy arrays, so this module needs
 nothing of JAX.  Dense kernels are ``[in, out]`` in flax and ``[out, in]`` in
@@ -73,3 +73,22 @@ def i3d_lstm_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
     head = lstm_head_from_jax(params["head"], batch_stats["head"])
     return {**{"i3d." + k: v for k, v in backbone.items()},
             **{"head." + k: v for k, v in head.items()}}
+
+
+def stgraph_from_jax(params) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`ctc_tpu_torch.models.stgraph.STGraphBase`
+    from the ``params`` tree of ``ctc_tpu``'s ``STGraphBase`` (it has no
+    ``batch_stats``): its top-level Dense layers by name, each pair head's
+    ``a_h`` / ``a_o`` / ``b_h`` / ``b_o`` under ``pairs.<pair>``."""
+    def dense(prefix, node):
+        return {prefix + "weight": _t(node["kernel"]).T.contiguous(),
+                prefix + "bias": _t(node["bias"])}
+
+    out = {}
+    for name, node in params.items():
+        if "kernel" in node:
+            out.update(dense(name + ".", node))
+        else:
+            for layer, sub in node.items():
+                out.update(dense(f"pairs.{name}.{layer}.", sub))
+    return out

@@ -1,5 +1,5 @@
 """Lattice math: log-space helpers, emission scores, the lattice DPs (CUDA
-kernels and their plain PyTorch versions)."""
+kernels and their plain PyTorch versions), the gradient tools."""
 
 from ctc_tpu_torch.ops.logspace import (
     BCE_LOG_CLAMP,
@@ -19,6 +19,12 @@ from ctc_tpu_torch.ops.blank_lattice_cuda import (
     blank_lattice_nll_cuda,
     blank_lattice_nll_plain,
 )
+from ctc_tpu_torch.ops.grad_tools import (
+    balance_labels,
+    block_gradient,
+    equalize_grad_norm,
+    verbose_gradients,
+)
 
 __all__ = [
     "BCE_LOG_CLAMP",
@@ -31,4 +37,8 @@ __all__ = [
     "noblank_lattice_nll_plain",
     "blank_lattice_nll_cuda",
     "blank_lattice_nll_plain",
+    "balance_labels",
+    "block_gradient",
+    "equalize_grad_norm",
+    "verbose_gradients",
 ]

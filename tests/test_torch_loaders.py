@@ -176,8 +176,8 @@ def test_extraction_without_features_dir_raises(corpus, tmp_path, dataset,
     features (ROADMAP item 12, ported) with the frozen I3D into
     ``<cache>/<key>_<split>``; here through a stub extractor that records
     the windows it is given (the I3D's own extraction is held to
-    ctc_tpu's in tests/test_torch_pixels.py).  The corpus's frames are
-    empty files, so decoding them raises."""
+    ctc_tpu's in tests/test_torch_pixels_extract.py).  The corpus's frames
+    are empty files, so decoding them raises."""
     from ctc_tpu_torch.data.loaders import _common
 
     cfg, _ = _cfgs(corpus, tmp_path, ["--dataset", dataset])
