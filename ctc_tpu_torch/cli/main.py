@@ -51,6 +51,7 @@ from ctc_tpu_torch import config as config_lib
 from ctc_tpu_torch.models import I3DLSTM, LSTMHead, full_f32_precision
 from ctc_tpu_torch.train import Trainer, resolve_device
 from ctc_tpu_torch.utils import Tee, seed_everything
+from ctc_tpu_torch.utils.profiling import span
 
 
 def get_dataset(cfg):
@@ -368,44 +369,48 @@ def run(cfg, device, mesh=None):
     if line:
         print(line)
 
-    train_batches, val_batches = get_dataset(cfg)
+    with span("ctc/data/dataset"):
+        train_batches, val_batches = get_dataset(cfg)
     pixels = cfg.dataset.endswith("_pixels")
-    model = build_model(cfg)
-    trainer = Trainer(
-        model,
-        loss_kind=cfg.loss,
-        lr=cfg.lr,
-        weight_decay=cfg.weight_decay,
-        lr_decay_epochs=cfg.lr_decay_rate,
-        steps_per_epoch=max(len(train_batches), 1),
-        cache_dir=cfg.cache,
-        print_freq=cfg.print_train_freq,
-        seed=cfg.manual_seed,
-        implementation=cfg.lattice_impl,
-        # the reference's quirk: --alpha 1.0 (its default) means no CE term
-        ce_weight=(cfg.alpha if cfg.alpha != 1.0 else 0.0),
-        accum_grad=cfg.accum_grad,
-        print_test_freq=cfg.print_test_freq,
-        train_size=cfg.train_size,
-        val_size=cfg.val_size,
-        device=device,
-        skip_nonfinite=cfg.skip_nonfinite,
-        grad_norm_freq=cfg.grad_norm_freq,
-        seq_parallel=cfg.seq_parallel,
-        seq_microbatches=cfg.seq_microbatches,
-        steps_per_dispatch=cfg.steps_per_dispatch,
-        transition_metrics=cfg.transition_metrics,
-        joint_object_weight=cfg.joint_object_weight,
-        mesh=mesh,
-        model_parallel=cfg.model_parallel,
-        i3d_optimizer=(
-            {"lr": cfg.lr, "momentum": cfg.momentum,
-             "weight_decay": cfg.weight_decay,
-             "finetune": cfg.finetune_i3d}
-            if pixels else None
-        ),
-    )
-    state = trainer.init_state()
+    with span("ctc/models/build"):
+        model = build_model(cfg)
+    # the trainer's generator creates the CUDA context on the card
+    with span("ctc/train/init"):
+        trainer = Trainer(
+            model,
+            loss_kind=cfg.loss,
+            lr=cfg.lr,
+            weight_decay=cfg.weight_decay,
+            lr_decay_epochs=cfg.lr_decay_rate,
+            steps_per_epoch=max(len(train_batches), 1),
+            cache_dir=cfg.cache,
+            print_freq=cfg.print_train_freq,
+            seed=cfg.manual_seed,
+            implementation=cfg.lattice_impl,
+            # the reference's quirk: --alpha 1.0 (its default) means no CE term
+            ce_weight=(cfg.alpha if cfg.alpha != 1.0 else 0.0),
+            accum_grad=cfg.accum_grad,
+            print_test_freq=cfg.print_test_freq,
+            train_size=cfg.train_size,
+            val_size=cfg.val_size,
+            device=device,
+            skip_nonfinite=cfg.skip_nonfinite,
+            grad_norm_freq=cfg.grad_norm_freq,
+            seq_parallel=cfg.seq_parallel,
+            seq_microbatches=cfg.seq_microbatches,
+            steps_per_dispatch=cfg.steps_per_dispatch,
+            transition_metrics=cfg.transition_metrics,
+            joint_object_weight=cfg.joint_object_weight,
+            mesh=mesh,
+            model_parallel=cfg.model_parallel,
+            i3d_optimizer=(
+                {"lr": cfg.lr, "momentum": cfg.momentum,
+                 "weight_decay": cfg.weight_decay,
+                 "finetune": cfg.finetune_i3d}
+                if pixels else None
+            ),
+        )
+        state = trainer.init_state()
     if pixels and cfg.rgb_pretrained_weights:
         model.load_backbone(torch.load(cfg.rgb_pretrained_weights,
                                        map_location="cpu"))

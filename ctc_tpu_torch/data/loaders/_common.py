@@ -17,6 +17,7 @@ import numpy as np
 from ctc_tpu_torch.data import charades as charades_data
 from ctc_tpu_torch.data.features import extract_split_features, load_features
 from ctc_tpu_torch.data.loading import Prefetcher, host_shard_indices
+from ctc_tpu_torch.utils.profiling import span
 
 
 def prepared_split(cfg, csv_file, prepare):
@@ -82,7 +83,8 @@ class LazyBatches:
 
     def __getitem__(self, i):
         idx = self._index_batches[i]
-        return self._collate(self._data, idx, self._feats[idx])
+        with span("ctc/data/decode"):
+            return self._collate(self._data, idx, self._feats[idx])
 
     def __iter__(self):
         return iter(Prefetcher(

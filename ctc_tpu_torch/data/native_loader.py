@@ -34,6 +34,7 @@ from pathlib import Path
 import numpy as np
 
 from ctc_tpu_torch.data.frames import STACK, load_frame, window_frame_paths
+from ctc_tpu_torch.utils.profiling import span
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ctc_tpu_torch"
@@ -79,17 +80,18 @@ def _load():
     global _lib, build_error
     with _lock:
         if build_error is None:
-            try:
-                lib = ctypes.CDLL(str(_build()))
-                lib.ctc_decode_frames.restype = ctypes.c_int
-                lib.ctc_decode_frames.argtypes = [
-                    ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_float),
-                ]
-                _lib, build_error = lib, ""
-            except Exception as e:  # no compiler, no libjpeg
-                build_error = f"{type(e).__name__}: {e}"
+            with span("ctc/data/build/decoder"):
+                try:
+                    lib = ctypes.CDLL(str(_build()))
+                    lib.ctc_decode_frames.restype = ctypes.c_int
+                    lib.ctc_decode_frames.argtypes = [
+                        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_float),
+                    ]
+                    _lib, build_error = lib, ""
+                except Exception as e:  # no compiler, no libjpeg
+                    build_error = f"{type(e).__name__}: {e}"
         return _lib
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctc_tpu_torch.models.lstm import dropout, lecun_normal_
+from ctc_tpu_torch.utils.profiling import span
 
 # (endpoint name, builder spec) in chain order
 ENDPOINTS = (
@@ -268,21 +269,26 @@ class InceptionI3d(nn.Module):
         if single:
             clips = clips[:, None]
         b, t = clips.shape[:2]
-        # [B*T, stack, h, w, 3] -> [N, C, D, H, W], a channels_last_3d view
-        x = clips.reshape((b * t,) + clips.shape[2:]).permute(0, 4, 1, 2, 3)
-        for name, _ in ENDPOINTS:
-            if name in self.pools:
-                x = max_pool_same(x, *self.pools[name])
-            else:
-                x = getattr(self, name)(x, train=train)
-            if name == self.final_endpoint:
-                break
-        # avg_pool (2, 7, 7) stride 1 VALID, then the mean over (t, h, w);
-        # summed in at least f32 (the CPU has no bf16 avg_pool3d), in x's
-        # dtype
-        pooled = F.avg_pool3d(x.to(torch.promote_types(x.dtype, torch.float32)),
-                              (2, 7, 7), stride=1).to(x.dtype)
-        feats = pooled.mean((2, 3, 4)).reshape(b, t, -1)
+        with span("ctc/models/i3d"):
+            # [B*T, stack, h, w, 3] -> [N, C, D, H, W], channels_last_3d view
+            x = clips.reshape((b * t,) + clips.shape[2:]).permute(
+                0, 4, 1, 2, 3)
+            for name, _ in ENDPOINTS:
+                with span(f"ctc/models/i3d/{name}"):
+                    if name in self.pools:
+                        x = max_pool_same(x, *self.pools[name])
+                    else:
+                        x = getattr(self, name)(x, train=train)
+                if name == self.final_endpoint:
+                    break
+            # avg_pool (2, 7, 7) stride 1 VALID, then the mean over (t, h,
+            # w); summed in at least f32 (the CPU has no bf16 avg_pool3d),
+            # in x's dtype
+            with span("ctc/models/i3d/avg_pool"):
+                pooled = F.avg_pool3d(
+                    x.to(torch.promote_types(x.dtype, torch.float32)),
+                    (2, 7, 7), stride=1).to(x.dtype)
+                feats = pooled.mean((2, 3, 4)).reshape(b, t, -1)
         if single:
             feats = feats[:, 0]
         if not with_logits:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctc_tpu_torch.parallel.collectives import pmean, world_size
+from ctc_tpu_torch.utils.profiling import span
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -164,18 +165,19 @@ class LSTMHead(nn.Module):
 
     def forward(self, feats, h0=None, c0=None, *, train: bool = False,
                 generator: torch.Generator | None = None):
-        _, batch, _ = feats.shape
-        v = self.feature_head(feats, train=train, generator=generator)
-        # [T, B, 4H], one matmul for all T
-        xw = dense(self.input_gates, v, self.dtype)
-        zeros = feats.new_zeros((batch, self.hidden))
-        h = zeros if h0 is None else h0
-        c = zeros if c0 is None else c0
-        hs = []
-        for xw_t in xw:
-            gates = xw_t + h @ self.recurrent_kernel
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            hs.append(h)
-        return torch.stack(hs)  # [T, B, H]
+        with span("ctc/models/head"):
+            _, batch, _ = feats.shape
+            v = self.feature_head(feats, train=train, generator=generator)
+            # [T, B, 4H], one matmul for all T
+            xw = dense(self.input_gates, v, self.dtype)
+            zeros = feats.new_zeros((batch, self.hidden))
+            h = zeros if h0 is None else h0
+            c = zeros if c0 is None else c0
+            hs = []
+            for xw_t in xw:
+                gates = xw_t + h @ self.recurrent_kernel
+                i, f, g, o = gates.chunk(4, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+                hs.append(h)
+            return torch.stack(hs)  # [T, B, H]

@@ -19,6 +19,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from ctc_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ctc_tpu_torch"
 NVCC_FLAGS = (
@@ -127,7 +129,8 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
+            with span(f"ctc/ops/build/{source}"):
+                lib = ctypes.CDLL(str(build(source)))
             for name, argtypes in SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

@@ -63,6 +63,7 @@ from ctc_tpu_torch.train.optim import (
     torch_style_adam,
 )
 from ctc_tpu_torch.train.schedule import step_decay_schedule
+from ctc_tpu_torch.utils.profiling import set_step, span
 
 
 def resolve_device(device) -> torch.device:
@@ -155,20 +156,23 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
 
     def train_step(state: TrainState, batch, generator=None):
         model, opt, exchange = state.model, state.optimizer, state.exchange
-        opt.begin(state.step)
-        if exchange is not None:
-            exchange.begin()
+        with span("ctc/train/zero_grad"):
+            opt.begin(state.step)
+            if exchange is not None:
+                exchange.begin()
         logits = model(_model_input(batch["feats"]), train=True,
                        generator=generator)  # [T, B, C]
-        loss = loss_fn(logits, batch["paths"], batch["input_lengths"],
-                       batch["target_lengths"],
-                       implementation=implementation)
-        if ce_weight:
-            loss = loss + ce_weight * losses.cross_entropy(
-                _head_logits(logits[-1], batch, loss_kind),
-                batch["future_target"],
-            )
-        loss.backward()
+        with span("ctc/ops/loss"):
+            loss = loss_fn(logits, batch["paths"], batch["input_lengths"],
+                           batch["target_lengths"],
+                           implementation=implementation)
+            if ce_weight:
+                loss = loss + ce_weight * losses.cross_entropy(
+                    _head_logits(logits[-1], batch, loss_kind),
+                    batch["future_target"],
+                )
+        with span("ctc/train/backward"):
+            loss.backward()
         loss = loss.detach()
         with torch.no_grad():
             (top1, top5), _ = topk_accuracy(
@@ -177,8 +181,9 @@ def make_train_step(loss_kind: str = "noblank", implementation=None,
             )
         if exchange is not None:
             loss, top1, top5 = exchange.finish(loss, top1, top5)
-        lr = 0.0 if schedule is None else schedule(opt.count)
-        guards = opt.step(state.step, lr)
+        with span("ctc/train/optimizer"):
+            lr = 0.0 if schedule is None else schedule(opt.count)
+            guards = opt.step(state.step, lr)
         with torch.no_grad():
             state.step.add_(1)
         return state, {"loss": loss, "top1": top1, "top5": top5, **guards}
@@ -417,6 +422,8 @@ class Trainer:
                 self.multi_eval_step = MultiStep(self.eval_step, k,
                                                  train=False,
                                                  device=self.device)
+        #: batches run, train and eval: the steps of the spans
+        self.steps_run = 0
         self.cache_dir = cache_dir
         self.print_freq = print_freq
         self.print_test_freq = (print_freq if print_test_freq is None
@@ -430,14 +437,16 @@ class Trainer:
         """Initialize the model from the trainer's seed (flax's init rule)
         or from ``state_dict``, move it to the device, and build the
         optimizer."""
-        if state_dict is None:
-            # drawn on the CPU, so a seed gives the same weights everywhere
-            self.model.to("cpu").reset_parameters(
-                torch.Generator().manual_seed(self.seed)
-            )
-        else:
-            self.model.load_state_dict(state_dict)
-        self.model.to(self.device)
+        with span("ctc/models/init"):
+            if state_dict is None:
+                # drawn on the CPU, so a seed gives the same weights
+                # everywhere
+                self.model.to("cpu").reset_parameters(
+                    torch.Generator().manual_seed(self.seed)
+                )
+            else:
+                self.model.load_state_dict(state_dict)
+            self.model.to(self.device)
         opt = self._optimizer()
         state = TrainState(model=self.model, optimizer=opt)
         if self.mesh is not None:
@@ -472,7 +481,8 @@ class Trainer:
             return batch
         from ctc_tpu_torch.parallel import shard_batch
 
-        return shard_batch(batch, self.mesh)
+        with span("ctc/train/place"):
+            return shard_batch(batch, self.mesh)
 
     @staticmethod
     def _uniform_shapes(group) -> bool:
@@ -490,10 +500,20 @@ class Trainer:
         return itertools.islice(iter(loader), int(n * size))
 
     def _groups(self, loader, size: float):
-        """The loader's batches in groups of ``steps_per_dispatch``."""
+        """The loader's batches in groups of ``steps_per_dispatch``, each
+        marked as the trainer's next steps for the spans
+        (:func:`ctc_tpu_torch.utils.profiling.set_step`), also the
+        decodes that a prefetching loader starts at ``iter``."""
+        set_step(self.steps_run)
         it = iter(self._part(loader, size))
-        while group := list(itertools.islice(it, self.steps_per_dispatch)):
+        while True:
+            set_step(self.steps_run)
+            with span("ctc/train/wait"):
+                group = list(itertools.islice(it, self.steps_per_dispatch))
+            if not group:
+                return
             yield group
+            self.steps_run += len(group)
 
     def _run_group(self, state, group, train: bool) -> list[dict]:
         """One group's steps; their metrics as host floats, read at once.
@@ -504,16 +524,21 @@ class Trainer:
         group = [self._place(b) for b in group]
         if k > 1 and len(group) == k and self._uniform_shapes(group):
             multi = self.multi_step if train else self.multi_eval_step
-            return host_rows(multi(state, group))
-        rows = []
-        for host_batch in group:
-            batch = to_device(host_batch, self.device)
-            if train:
-                state, m = self.train_step(state, batch, self.generator)
-            else:
-                m = self.eval_step(state, batch)
-            rows.append(m)
-        return host_rows(stack_metrics(rows))
+            with span("ctc/train/group"):
+                out = multi(state, group)
+        else:
+            rows = []
+            for host_batch in group:
+                with span("ctc/train/to_device"):
+                    batch = to_device(host_batch, self.device)
+                if train:
+                    state, m = self.train_step(state, batch, self.generator)
+                else:
+                    m = self.eval_step(state, batch)
+                rows.append(m)
+            out = stack_metrics(rows)
+        with span("ctc/train/read"):
+            return host_rows(out)
 
     def _csv_writer(self, name):
         if not (self.cache_dir and self.writer):
@@ -529,28 +554,29 @@ class Trainer:
         try:
             for group in self._groups(loader, self.train_size):
                 rows = self._run_group(state, group, train=True)
-                for m in rows:
-                    if m.get("grad_norm_due"):
-                        print(grad_norm_line(int(m["grad_norm_step"]),
-                                             m["grad_norm"]))
-                for host_batch, m in zip(group, rows):
-                    n = host_batch["feats"].shape[0]
-                    for k in ("loss", "top1", "top5"):
-                        meters[k].update(m[k], n)
-                    meters["time"].update(time.time() - end)
-                    end = time.time()
-                    if i % self.print_freq == 0:
-                        print(
-                            f"Epoch: [{epoch}][{i}]\t"
-                            f"Loss {meters['loss'].val:.3f} ({meters['loss'].avg:.3f})\t"
-                            f"Prec@1 {meters['top1'].val:.3f} ({meters['top1'].avg:.3f})\t"
-                            f"Prec@5 {meters['top5'].val:.3f} ({meters['top5'].avg:.3f})"
-                        )
-                        if log:
-                            log[1].writerow([epoch, i, meters["loss"].val,
-                                             meters["top1"].val,
-                                             meters["top5"].val])
-                    i += 1
+                with span("ctc/train/log"):
+                    for m in rows:
+                        if m.get("grad_norm_due"):
+                            print(grad_norm_line(int(m["grad_norm_step"]),
+                                                 m["grad_norm"]))
+                    for host_batch, m in zip(group, rows):
+                        n = host_batch["feats"].shape[0]
+                        for k in ("loss", "top1", "top5"):
+                            meters[k].update(m[k], n)
+                        meters["time"].update(time.time() - end)
+                        end = time.time()
+                        if i % self.print_freq == 0:
+                            print(
+                                f"Epoch: [{epoch}][{i}]\t"
+                                f"Loss {meters['loss'].val:.3f} ({meters['loss'].avg:.3f})\t"
+                                f"Prec@1 {meters['top1'].val:.3f} ({meters['top1'].avg:.3f})\t"
+                                f"Prec@5 {meters['top5'].val:.3f} ({meters['top5'].avg:.3f})"
+                            )
+                            if log:
+                                log[1].writerow([epoch, i, meters["loss"].val,
+                                                 meters["top1"].val,
+                                                 meters["top5"].val])
+                        i += 1
         finally:
             if log:
                 log[0].close()
