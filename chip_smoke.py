@@ -24,7 +24,10 @@ class shards, 2 ranks x 4 seq shards, two CLI processes joined by
 extraction; bf16 on the main path; step times, decode and copy), runs
 the ST-graph model and criterion at full width through the blank lattice
 kernels (card against CPU and against a float64 run, Adam steps, the
-gradient tools, the step's times), checks
+gradient tools, the step's times), holds the TF-same max pool kernels
+against their plain version on the 13 pools' inputs of a frozen step and
+times them beside their bound and ``F.max_pool3d`` (first, right after
+the build; ``--only max_pool`` stops there), checks
 that each run went through its kernels, profiles each train
 step eagerly and as a graph and host batches fed plainly and through
 ``device_prefetch``, and times each
@@ -434,6 +437,16 @@ def read_counts() -> dict:
     from ctc_tpu_torch.ops import lattice_cuda as lc
 
     return {**lc.launch_counts, **bl.launch_counts}
+
+
+I3D_POOLS = 13  # max pools in one InceptionI3d forward
+
+
+def pool_counts(forwards=0, backwards=0) -> dict:
+    """The pool kernels' launches for ``forwards`` I3D forwards and
+    ``backwards`` I3D backwards: one a pool each."""
+    return {"max_pool3d_same_forward": I3D_POOLS * forwards,
+            "max_pool3d_same_backward": I3D_POOLS * backwards}
 
 
 def expect_counts(noblank=(0, 0), blank=(0, 0), noblank_shard=(0, 0),
@@ -962,12 +975,15 @@ PIXELS_STAGES = {
     "batch": [("ctc_tpu_torch.data.loaders._common", "LazyBatches.__getitem__")],
     "window_decode": [("ctc_tpu_torch.data.loaders.charades_pixels",
                        "load_window_native")],
+    # the backbone's forwards, each launching the 13 pool kernels
+    "i3d_forward": [("ctc_tpu_torch.models.i3d", "InceptionI3d.forward")],
 }
 EXTRACT_STAGES = {
     "extract_split": [("ctc_tpu_torch.data.loaders._common",
                        "extract_split_features")],
     "i3d_batches": [("ctc_tpu_torch.data.features",
                      "I3DFeatureExtractor.__call__")],
+    "i3d_forward": [("ctc_tpu_torch.models.i3d", "InceptionI3d.forward")],
 }
 # f32 features, card (cuDNN, TF32 off) against the CPU: the JAX suite's
 # bound for its I3D against the reference (tests/test_i3d.py)
@@ -1016,11 +1032,12 @@ def pixels_model(**kw):
 def pixels_cli_run(label, argv, stages):
     """One CLI run on the card with the counts and the peak memory reset
     before it and ``stages`` timed inside it; ``(history, (train, val)
-    loaders, launches, seconds, stage seconds, stage calls, peak bytes,
-    printed text)``."""
+    loaders, launches (the lattice kernels' and the pool kernels'),
+    seconds, stage seconds, stage calls, peak bytes, printed text)``."""
     import torch
 
     from ctc_tpu_torch.cli import main as cli_main
+    from ctc_tpu_torch.ops import max_pool as mp
 
     loaders = []
     get_dataset = cli_main.get_dataset
@@ -1035,12 +1052,13 @@ def pixels_cli_run(label, argv, stages):
         with timed_stages(stages) as (seconds, calls), \
                 contextlib.redirect_stdout(out):
             reset_counts()
+            mp.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             history = cli_main.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = read_counts()
+            launches = {**read_counts(), **mp.launch_counts}
     finally:
         cli_main.get_dataset = get_dataset
     if len(loaders) != 1:
@@ -1401,8 +1419,18 @@ def phase_pixels(work, card):
         (history, (train, val), launches, wall, stages, calls, peak,
          printed) = pixels_cli_run(label, argv, PIXELS_STAGES)
         n_train, n_val = len(train), len(val)
-        want = expect_counts(noblank=((n_train + n_val) * epochs,
-                                      n_train * epochs))
+        # one backbone forward a batch (the chunk run one a chunk of a
+        # batch's clips, so more), its pools' backward in each finetune
+        # train step
+        forwards = calls["i3d_forward"]
+        run_batches = (n_train + n_val) * epochs
+        if forwards < run_batches or (
+                (forwards > run_batches) != (label == "chunk")):
+            fail(f"pixels {label}: {forwards} I3D forwards for "
+                 f"{run_batches} batches")
+        want = {**expect_counts(noblank=(run_batches, n_train * epochs)),
+                **pool_counts(forwards, n_train * epochs
+                              if label == "finetune" else 0)}
         if launches != want:
             fail(f"pixels {label}: launch counts {launches}, expected "
                  f"{want}")
@@ -1428,7 +1456,8 @@ def phase_pixels(work, card):
         emit({"phase": "pixels", "run": label, "argv": argv,
               "train_batches": n_train, "val_batches": n_val,
               "batch_feats_shape": list(first_batch["feats"].shape),
-              "launches": launches, "train_loss_by_epoch": losses,
+              "launches": launches, "i3d_forwards": forwards,
+              "train_loss_by_epoch": losses,
               "val_loss_by_epoch": [h["val"]["loss"] for h in history],
               "backbone_unchanged": unchanged, "seconds": wall,
               "step_s_host_avg": [h["train"]["time"] for h in history],
@@ -1468,7 +1497,9 @@ def phase_pixels(work, card):
         (history, (train, val), launches, wall, stages, calls, peak,
          out) = pixels_cli_run("extract", argv, EXTRACT_STAGES)
         printed.append(out)
-        want = expect_counts(noblank=(len(train) + len(val), len(train)))
+        want = {**expect_counts(noblank=(len(train) + len(val),
+                                         len(train))),
+                **pool_counts(calls["i3d_forward"])}
         if launches != want:
             fail(f"pixels extract: launch counts {launches}, expected "
                  f"{want}")
@@ -1514,7 +1545,9 @@ def phase_pixels(work, card):
         history, loaders, launches, wall, _, _, _, _ = pixels_cli_run(
             f"main {dtype}", argv, {})
         steps = len(loaders[0]) * 2
-        want = expect_counts(noblank=(steps + len(loaders[1]) * 2, steps))
+        want = {**expect_counts(noblank=(steps + len(loaders[1]) * 2,
+                                         steps)),
+                **pool_counts()}
         if launches != want:
             fail(f"main path {dtype}: launch counts {launches}, expected "
                  f"{want}")
@@ -3349,11 +3382,12 @@ def device_kernels(prof):
 DEVICE_WINDOWS = 5  # profiler windows per device time; the median is kept
 
 
-def kernel_device_ms(fn, symbol, iters=20):
+def kernel_device_ms(fn, symbol=None, iters=20):
     """Device execution time of one launch of ``fn``'s kernel ``symbol``
     from the profiler (the CUDA-event time of back-to-back launches at a
-    small shape is the host's launch rate instead): the mean launch of each
-    of ``DEVICE_WINDOWS`` windows of ``iters`` launches, as the row fields
+    small shape is the host's launch rate instead), or without a symbol of
+    every kernel one call of ``fn`` launches: the mean of each of
+    ``DEVICE_WINDOWS`` windows of ``iters`` calls, as the row fields
     ``kernel_device_ms`` (their median) and ``kernel_device_ms_min_max``.
     A window whose trace holds no record of the kernel (the tracer dropped
     it) is taken again, at most twice in all; None where none holds one."""
@@ -3368,10 +3402,11 @@ def kernel_device_ms(fn, symbol, iters=20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in device_kernels(prof) if symbol in e.key]
+        ev = [e for e in device_kernels(prof)
+              if symbol is None or symbol in e.key]
         if ev:
-            readings.append(sum(dev_us(e) for e in ev)
-                            / sum(e.count for e in ev) / 1e3)
+            calls = iters if symbol is None else sum(e.count for e in ev)
+            readings.append(sum(dev_us(e) for e in ev) / calls / 1e3)
         if len(readings) == DEVICE_WINDOWS:
             break
     if not readings:
@@ -3396,6 +3431,157 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def phase_max_pool(card, name):
+    """The TF-same max pool kernels (``csrc/max_pool3d_same.cu``) on the
+    inputs of the 13 pools of one frozen step: 100 clips of 10 x 224 x 224
+    through a seeded ``InceptionI3d`` in float32, in the layout the model
+    gives them.  Per pool: that layout, the kernel output's strides against
+    the plain version's, parity (the forward exact; the gradient exact
+    under an integer cotangent), and the card ms (CUDA events; device, by
+    the profiler) of the forward without offsets (the frozen path), with
+    offsets and the gather backward (the finetune path), beside each one's
+    bytes bound, the plain version's ms (``F.pad`` and ``F.max_pool3d``)
+    and the library's: ``F.max_pool3d`` alone on the padded input and its
+    backward (what the port ran before).  Then the sums over a step's 13
+    pools, and the launches of a frozen forward and of a finetune step."""
+    import torch
+
+    from ctc_tpu_torch.models import i3d
+    from ctc_tpu_torch.ops import max_pool as mp
+
+    torch.manual_seed(0)
+    model = i3d.InceptionI3d(num_classes=None).to("cuda").eval()
+    clips = torch.randn((10, 10, 10, 224, 224, 3), device="cuda")
+    names = [pool[0] for pool in i3d.pool_shapes(100)]
+    inputs = []
+
+    def recording(x, kernel, stride):
+        inputs.append((x, kernel, stride))
+        return mp.max_pool3d_same(x, kernel, stride)
+
+    original = i3d.max_pool3d_same
+    i3d.max_pool3d_same = recording
+    mp.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            model(clips)
+    finally:
+        i3d.max_pool3d_same = original
+    torch.cuda.synchronize()
+    launches = dict(mp.launch_counts)
+    if launches != {"max_pool3d_same_forward": 13,
+                    "max_pool3d_same_backward": 0}:
+        fail(f"max_pool: one frozen forward launched {launches}")
+    # one finetune step of one clip: both kernels, 13 launches each
+    mp.reset_launch_counts()
+    step_model = i3d.InceptionI3d(num_classes=None).to("cuda")
+    step_model(torch.randn((1, 1, 10, 224, 224, 3), device="cuda"),
+               train=True).sum().backward()
+    torch.cuda.synchronize()
+    step_launches = dict(mp.launch_counts)
+    if step_launches != {"max_pool3d_same_forward": 13,
+                         "max_pool3d_same_backward": 13}:
+        fail(f"max_pool: one finetune step launched {step_launches}")
+    del model, clips, step_model
+    rate = hbm_rate(name)
+    rows, totals = [], {}
+    for pool, (x, kernel, stride) in zip(names, inputs):
+        pads = mp.same_pads(x.shape[2:], kernel, stride)
+        padded = torch.nn.functional.pad(x, pads)
+        y = mp.max_pool3d_same(x, kernel, stride)
+        want = mp.max_pool3d_same_plain(x, kernel, stride)
+        xg = x.detach().requires_grad_()
+        ref = x.detach().clone().requires_grad_()
+        yg = mp.max_pool3d_same(xg, kernel, stride)
+        gy = torch.randint(1, 9, yg.shape, device="cuda").float().contiguous(
+            memory_format=torch.channels_last_3d if mp.channels_last(yg)
+            else torch.contiguous_format)
+        (gx,) = torch.autograd.grad(yg, xg, gy)
+        (want_gx,) = torch.autograd.grad(
+            mp.max_pool3d_same_plain(ref, kernel, stride), ref, gy)
+        torch.cuda.synchronize()
+        fwd_err = max_dev(y, want)
+        grad_err = max_dev(gx, want_gx)
+        if fwd_err or grad_err or y.stride() != want.stride():
+            fail(f"max_pool {pool}: forward |dev| {fwd_err}, gradient "
+                 f"|dev| {grad_err}, strides {y.stride()} / "
+                 f"{want.stride()}")
+        _, offsets = mp.max_pool3d_same_kernel(x, kernel, stride,
+                                               with_offsets=True)
+        lib_y, lib_idx = torch.nn.functional.max_pool3d(
+            padded, kernel, stride, return_indices=True)
+        fns = {
+            "forward": lambda: mp.max_pool3d_same_kernel(
+                x, kernel, stride, with_offsets=False),
+            "forward_offsets": lambda: mp.max_pool3d_same_kernel(
+                x, kernel, stride, with_offsets=True),
+            "backward": lambda: mp.max_pool3d_same_grad_kernel(
+                gy, offsets, x.shape, kernel, stride),
+            "plain": lambda: mp.max_pool3d_same_plain(x, kernel, stride),
+            "library": lambda: torch.nn.functional.max_pool3d(
+                padded, kernel, stride),
+            "library_backward": lambda: (
+                torch.ops.aten.max_pool3d_with_indices_backward(
+                    gy, padded, kernel, stride, (0, 0, 0), (1, 1, 1), False,
+                    lib_idx)),
+        }
+        ebytes = x.element_size()
+        n_in, n_out = x.numel(), y.numel()
+        bounds = {
+            "forward": (n_in + n_out) * ebytes,
+            "forward_offsets": (n_in + n_out) * ebytes + n_out,
+            "backward": n_out * (ebytes + 1) + n_in * ebytes,
+        }
+        row = {"phase": "max_pool", "pool": pool, "shape": list(x.shape),
+               "kernel": list(kernel), "stride": list(stride),
+               "channels_last": mp.channels_last(x),
+               "out_channels_last": mp.channels_last(y),
+               "out_strides": list(y.stride()),
+               "plain_out_strides": list(want.stride()),
+               "tile": list(mp.tile_plan(tuple(y.shape[3:]), kernel,
+                                         stride)),
+               "forward_max_abs_dev": fwd_err, "grad_max_abs_dev": grad_err}
+        order = ("plain", "library", "forward", "forward_offsets",
+                 "backward", "library_backward")
+        events = {k: [] for k in order}
+        for k in order + order[::-1]:  # in turns
+            events[k].append(time_ms(fns[k], 10))
+        for k in order:
+            row[f"{k}_ms"] = sum(events[k]) / 2
+            row[f"{k}_device_ms"] = kernel_device_ms(
+                fns[k], iters=10)["kernel_device_ms"]
+            if row[f"{k}_device_ms"] is None:
+                fail(f"max_pool {pool}: no device record of {k}")
+            if k in bounds:
+                row[f"{k}_bytes"] = bounds[k]
+                row[f"{k}_bound_ms"] = bounds[k] / rate * 1e3
+                row[f"{k}_roofline_pct"] = (
+                    100 * row[f"{k}_bound_ms"] / row[f"{k}_device_ms"])
+            totals[k] = totals.get(k, 0.0) + row[f"{k}_device_ms"]
+            totals[f"{k}_events"] = (totals.get(f"{k}_events", 0.0)
+                                     + row[f"{k}_ms"])
+            totals[f"{k}_bound"] = (totals.get(f"{k}_bound", 0.0)
+                                    + row.get(f"{k}_bound_ms", 0.0))
+        emit(row)
+        rows.append(row)
+        del padded, lib_y, lib_idx, offsets, gx, want_gx, y, want, yg
+    summary = {"phase": "max_pool_step", "pools": len(rows),
+               "launches_frozen_forward": launches,
+               "launches_finetune_step": step_launches,
+               **{f"{k}_ms": totals[f"{k}_events"] for k in order},
+               **{f"{k}_device_ms": totals[k] for k in order},
+               "forward_max_abs_dev": max(r["forward_max_abs_dev"]
+                                          for r in rows),
+               "grad_max_abs_dev": max(r["grad_max_abs_dev"] for r in rows),
+               **{f"{k}_bound_ms": totals[f"{k}_bound"]
+                  for k in ("forward", "forward_offsets", "backward")},
+               "forward_roofline_pct": 100 * totals["forward_bound"]
+               / totals["forward"],
+               "hbm_bytes_per_s": rate, "card": card}
+    emit(summary)
+    return summary
 
 
 def phase_times(card, name):
@@ -4369,6 +4555,7 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    only_pool = sys.argv[1:] == ["--only", "max_pool"]
     try:
         from ctc_tpu_torch.ops import blank_lattice_cuda  # noqa: F401
     except ImportError as e:
@@ -4379,6 +4566,11 @@ def main() -> None:
     emit({"phase": "device", "name": name, "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
+    pool = phase_max_pool(card, name)
+    if only_pool:
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return
     errs = phase_parity()
     blank_errs = phase_parity_blank()
     seq_errs = phase_parity_seq()
@@ -4467,6 +4659,29 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    # the pool kernels replace no Pallas kernel.  Launches: the frozen and
+    # the finetune charades_pixels runs (13 a backbone forward, 13 a
+    # finetune step's backward); times, bounds and the largest deviation
+    # from the plain version: the 13 pools of a frozen step, summed
+    for kname, key, err, run in (
+            ("max_pool3d_same_forward", "forward", "forward_max_abs_dev",
+             "pixels_frozen"),
+            ("max_pool3d_same_backward", "backward", "grad_max_abs_dev",
+             "pixels_finetune")):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "ctc_tpu_torch/csrc/max_pool3d_same.cu",
+            "replaces": None,
+            "launches": pixels_launches[run][kname],
+            "max_abs_err": pool[err],
+            "ms": pool[f"{key}_ms"], "device_ms": pool[f"{key}_device_ms"],
+            "plain_ms": pool["plain_device_ms"],
+            "bound_ms": pool[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": pool["library_device_ms" if key == "forward"
+                               else "library_backward_device_ms"],
+            "pixels_launches": {run: n[kname] for run, n in
+                                pixels_launches.items() if n.get(kname)},
         })
     emit({"kernels": kernels})
     print(card, flush=True)

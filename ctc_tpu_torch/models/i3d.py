@@ -12,9 +12,13 @@
   channels-last tensor is a ``channels_last_3d`` view, so no copy is made.
 * TF-"same" padding is XLA's rule, which is asymmetric at stride 2: total
   ``max((ceil(n / s) - 1) s + k - n, 0)``, ``total // 2`` in front
-  (``Conv3d_1a_7x7`` on 10 frames pads 2 before and 3 after).  Max pools
-  pad with zeros where XLA pads with -inf; every pooled tensor is
-  post-ReLU, hence non-negative, so both give the same maximum.
+  (``Conv3d_1a_7x7`` on 10 frames pads 2 before and 3 after).  The
+  convolutions pad with zeros; the 13 max pools take XLA's -inf padding,
+  which ``ops/max_pool.py::max_pool3d_same`` keeps by skipping the window
+  taps outside the tensor: on the card one hand-written kernel
+  (``csrc/max_pool3d_same.cu``) with no padded copy, and a uint8 tap
+  beside each output only where autograd needs it; on the CPU its plain
+  version.
 * BatchNorm is flax's, not ``nn.BatchNorm3d``'s: eps 1e-3, flax momentum
   0.99 (torch's 0.01), statistics by ``E[x^2] - E[x]^2`` clipped at 0, and
   the running variance updated with the *biased* batch variance.
@@ -31,13 +35,12 @@ sets it so, and the entry points call it.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ctc_tpu_torch.models.lstm import dropout, lecun_normal_
+from ctc_tpu_torch.ops.max_pool import max_pool3d_same, same_pads
 from ctc_tpu_torch.utils.profiling import span
 
 # (endpoint name, builder spec) in chain order
@@ -63,6 +66,26 @@ ENDPOINTS = (
 FEATURE_DIM = 1024
 
 
+def pool_shapes(n: int, frames: int = 10, size: int = 224) -> list:
+    """The chain's 13 max pools on ``n`` clips of ``frames`` x ``size`` x
+    ``size``: ``(name, input [N, C, D, H, W], kernel, stride)`` in chain
+    order, branch 3 of a ``Mixed_*`` block named ``<block>/b3``."""
+    dhw, channels, pools = [frames, size, size], 3, []
+    for name, spec in ENDPOINTS:
+        if spec[0] == "unit":
+            _, channels, kernel, stride = spec
+        elif spec[0] == "pool":
+            kernel, stride = spec[1:]
+            pools.append((name, (n, channels, *dhw), kernel, stride))
+        else:
+            kernel, stride = (3, 3, 3), (1, 1, 1)
+            pools.append((f"{name}/b3", (n, channels, *dhw), kernel, stride))
+            oc = spec[1]
+            channels = oc[0] + oc[2] + oc[4] + oc[5]
+        dhw = [-(-d // s) for d, s in zip(dhw, stride)]
+    return pools
+
+
 def full_f32_precision() -> None:
     """Float32 convolutions and matmuls on the card in full float32, not
     TF32 (cuDNN's default for convolutions)."""
@@ -77,26 +100,11 @@ def without_logits(state_dict) -> dict:
             if not k.startswith("logits.")}
 
 
-def same_pads(sizes, kernel, stride) -> tuple:
-    """``F.pad``'s argument for XLA's SAME padding of the trailing
-    ``len(kernel)`` dims of sizes ``sizes`` (last dim first)."""
-    pads = []
-    for n, k, s in zip(reversed(sizes), reversed(kernel), reversed(stride)):
-        total = max((math.ceil(n / s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return tuple(pads)
-
-
 def pad_same(x, kernel, stride):
     """``x`` ``[N, C, D, H, W]`` zero-padded as XLA's SAME padding pads
     it (as it is where that pads nothing)."""
     pads = same_pads(x.shape[2:], kernel, stride)
     return F.pad(x, pads) if any(pads) else x
-
-
-def max_pool_same(x, kernel, stride):
-    """TF-same max pool of a non-negative ``[N, C, D, H, W]`` tensor."""
-    return F.max_pool3d(pad_same(x, kernel, stride), kernel, stride)
 
 
 class BatchNorm(nn.Module):
@@ -209,7 +217,7 @@ class InceptionModule(nn.Module):
         b0 = self.b0(x, train=train)
         b1 = self.b1b(self.b1a(x, train=train), train=train)
         b2 = self.b2b(self.b2a(x, train=train), train=train)
-        b3 = self.b3b(max_pool_same(x, (3, 3, 3), (1, 1, 1)), train=train)
+        b3 = self.b3b(max_pool3d_same(x, (3, 3, 3), (1, 1, 1)), train=train)
         return torch.cat([b0, b1, b2, b3], dim=1)
 
 
@@ -276,7 +284,7 @@ class InceptionI3d(nn.Module):
             for name, _ in ENDPOINTS:
                 with span(f"ctc/models/i3d/{name}"):
                     if name in self.pools:
-                        x = max_pool_same(x, *self.pools[name])
+                        x = max_pool3d_same(x, *self.pools[name])
                     else:
                         x = getattr(self, name)(x, train=train)
                 if name == self.final_endpoint:

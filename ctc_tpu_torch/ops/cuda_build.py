@@ -76,6 +76,14 @@ SIGNATURES = {
         # stream
         "probe_fwd_exp_renorm": (_P, _P, _P, *(_I,) * 6, _P),
     },
+    "max_pool3d_same.cu": {
+        # x, y, offsets (or null), dtype, N, C, D, H, W, OD, OH, OW, kd,
+        # kh, kw, sd, sh, sw, pd, ph, pw, TH, TW, stream
+        "max_pool3d_same_forward": (_P, _P, _P, *(_I,) * 20, _P),
+        # gy, offsets, gx, dtype, N, C, D, H, W, OD, OH, OW, kd, kh, kw,
+        # sd, sh, sw, pd, ph, pw, stream
+        "max_pool3d_same_backward": (_P, _P, _P, *(_I,) * 18, _P),
+    },
 }
 
 _lock = threading.Lock()

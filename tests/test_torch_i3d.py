@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from ctc_tpu.models.i3d import InceptionI3d as JaxI3d
 from ctc_tpu.models.i3d import InceptionModule as JaxInception
+from ctc_tpu.models.i3d import _max_pool_same as jax_max_pool_same
 from ctc_tpu.models.i3d import Unit3D as JaxUnit3D
 from ctc_tpu.models.i3d import convert_torch_state_dict
 from ctc_tpu_torch.models import (
@@ -32,7 +33,8 @@ from ctc_tpu_torch.models import (
     Unit3D,
     i3d_from_jax,
 )
-from ctc_tpu_torch.models.i3d import same_pads
+from ctc_tpu_torch.models.i3d import ENDPOINTS, same_pads
+from ctc_tpu_torch.ops.max_pool import max_pool3d_same
 
 TOL = dict(rtol=1e-3, atol=2e-4)
 
@@ -76,6 +78,43 @@ def test_same_pads_follow_xla(n, k, s, want):
     """XLA's SAME padding: total (ceil(n/s) - 1) s + k - n, half in front;
     Conv3d_1a_7x7 on 10 frames pads 2 before and 3 after."""
     assert same_pads((n,), (k,), (s,)) == want
+
+
+# the five pool cases of ENDPOINTS, each on a small [D, H, W] with odd and
+# even sides (MaxPool3d_2a and _3a share a window and stride, at other sizes)
+POOLS = {name: spec[1:] for name, spec in ENDPOINTS if spec[0] == "pool"}
+POOL_CASES = [
+    ("MaxPool3d_2a_3x3", (5, 23, 22)),
+    ("MaxPool3d_3a_3x3", (5, 12, 11)),
+    ("MaxPool3d_4a_3x3", (5, 8, 7)),
+    ("MaxPool3d_5a_2x2", (3, 7, 6)),
+    ("Mixed_b3", (5, 7, 6)),
+]
+
+
+@pytest.mark.parametrize("name,size", POOL_CASES,
+                         ids=[name for name, _ in POOL_CASES])
+def test_max_pool_same_matches_jax(name, size):
+    """The plain TF-same pool (the CPU path, the kernel's oracle) against
+    ctc_tpu's reduce_window on inputs of both signs, so the -inf padding is
+    held and not only its zero-padding special case; and its gradient
+    through torch.autograd against jax.vjp under an integer cotangent,
+    whose sums are exact in any order."""
+    kernel, stride = POOLS.get(name, ((3, 3, 3), (1, 1, 1)))
+    x = clips((2, *size, 4), 11) - 1.0  # mostly negative: border maxima
+    want, vjp = jax.vjp(lambda v: jax_max_pool_same(v, kernel, stride),
+                        jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 4, 1, 2, 3).requires_grad_()
+    got = max_pool3d_same(xt, kernel, stride)
+    np.testing.assert_array_equal(
+        got.permute(0, 2, 3, 4, 1).detach().numpy(), np.asarray(want))
+    cot = np.random.default_rng(12).integers(1, 9, want.shape).astype(
+        np.float32)
+    (want_grad,) = vjp(jnp.asarray(cot))
+    (grad,) = torch.autograd.grad(
+        got, xt, torch.from_numpy(cot).permute(0, 4, 1, 2, 3))
+    np.testing.assert_array_equal(grad.permute(0, 2, 3, 4, 1).numpy(),
+                                  np.asarray(want_grad))
 
 
 @pytest.mark.parametrize("kernel,stride,size", [
