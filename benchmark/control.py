@@ -30,15 +30,16 @@ VARIANTS = ("tf32", "half_batch", "unchanged")
 def readings(cell: dict, seed: int, variants, device: str = "cuda",
              root=None) -> dict:
     """``{variant: compare() numbers}`` of one seed."""
-    from benchmark import harness
+    from benchmark import harness, spec
     from benchmark.reference import train as ref_train
 
+    model = spec.model(cell["config"])
     corpus_root = root and os.path.join(root, "corpus")
     root = root or harness.run_dir(cell["name"])
     try:
         paths = harness.write_inputs(cell, seed, root, corpus_root)
         weights = {k: v.cpu() for k, v in ref_train.initial_weights(
-            harness.weight_shapes(cell), seed, device).items()}
+            model, model.shapes(cell["config"]), seed, device).items()}
         batches = harness.reference_batches(cell, paths, seed,
                                             cell["check_steps"])
     finally:

@@ -98,20 +98,7 @@ def cli_argv(cell: dict, paths: dict, seed: int, device: str, root: str):
         argv.append("--finetune-i3d")
     if cell["feed"] == "features":
         argv += ["--features-dir", paths["features_dir"]]
-    return argv
-
-
-def weight_shapes(cell: dict) -> dict:
-    """``{name: shape}`` of the cell's model in the reference's names:
-    ``head.*``, and ``i3d.*`` in pixels mode."""
-    from benchmark.reference import model as ref_model
-
-    conf = cell["config"]
-    out = {f"head.{k}": v for k, v in ref_model.head_shapes(
-        conf["feature_dim"], conf["hidden"]).items()}
-    if conf["dataset"].endswith("_pixels"):
-        out.update({f"i3d.{k}": v for k, v in ref_model.i3d_shapes().items()})
-    return out
+    return argv + list(conf.get("flags", []))
 
 
 class Run:
@@ -120,6 +107,7 @@ class Run:
     def __init__(self, cell, seed, seconds, trace, device):
         self.cell, self.seed, self.seconds = cell, seed, seconds
         self.trace, self.device = trace, device
+        self.model = spec.model(cell["config"])
         self.check = {"losses": []}
         self.record = {}
         self.marks = {}
@@ -144,7 +132,8 @@ class Run:
         sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
                 else (lambda: None))
         self.named = self.trained_names(state)
-        timers = Timers(state.model, self.device) if self.trace else None
+        timers = (Timers(state.model, self.model.TIMED, self.device)
+                  if self.trace else None)
         orig_step = trainer.train_step
         losses = self.check["losses"]
 
@@ -220,12 +209,13 @@ class Run:
 
         from benchmark.reference import train as ref_train
 
-        self.weights = ref_train.initial_weights(weight_shapes(self.cell),
-                                                 self.seed, self.device)
+        self.weights = ref_train.initial_weights(
+            self.model, self.model.shapes(self.cell["config"]), self.seed,
+            self.device)
         current = model.state_dict()
         new = {}
         for name, t in current.items():
-            ref = self.ref_name(name)
+            ref = self.model.ref_name(name)
             if ref in self.weights:
                 new[name] = self.weights[ref]
             elif name.endswith("num_batches_tracked"):
@@ -235,15 +225,8 @@ class Run:
         model.load_state_dict(new)
         self.weights = {k: v.cpu() for k, v in self.weights.items()}
 
-    @property
-    def pixels(self):
-        return self.cell["feed"] != "features"
-
-    def ref_name(self, name):
-        return name if self.pixels else f"head.{name}"
-
     def trained_names(self, state):
-        return {self.ref_name(n): p
+        return {self.model.ref_name(n): p
                 for n, p in state.model.named_parameters()
                 if p.requires_grad}
 
@@ -262,16 +245,17 @@ class Run:
 
 
 class Timers:
-    """The traced run's device clock around the backbone's forward: CUDA
-    events at its boundary, armed for the window."""
+    """The traced run's device clock around the forward of the program
+    model's attribute ``timed`` (the configuration's ``TIMED``; nothing
+    where None): CUDA events at its boundary, armed for the window."""
 
-    def __init__(self, model, device):
+    def __init__(self, model, timed, device):
         import torch
 
         self.armed = False
         self.events = []
         self.handles = []
-        backbone = getattr(model, "i3d", None)
+        backbone = getattr(model, timed) if timed else None
         if backbone is not None and device == "cuda":
             def before(module, args):
                 if self.armed:
@@ -301,8 +285,9 @@ class Timers:
             h.remove()
         if self.events:
             torch.cuda.synchronize()
-        return {"i3d_forward_s": [a.elapsed_time(b) * 1e-3
-                                  for a, b in self.events if b is not None]}
+        return {"backbone_forward_s": [
+            a.elapsed_time(b) * 1e-3 for a, b in self.events
+            if b is not None]}
 
 
 def reference_batches(cell: dict, paths: dict, seed: int, steps: int):
@@ -313,6 +298,7 @@ def reference_batches(cell: dict, paths: dict, seed: int, steps: int):
 
     conf = cell["config"]
     geom = conf["geometry"]
+    offsets = spec.model(conf).clip_offsets(conf)
     labels = ref_data.parse_csv(paths["train_file"])
     counts = {v: ref_data.count_frames(paths["rgb_data"], v) for v in labels}
     windows = ref_data.train_windows(labels, counts, paths["rgb_data"],
@@ -321,10 +307,10 @@ def reference_batches(cell: dict, paths: dict, seed: int, steps: int):
                                      num_trans=geom["num_trans"])
     index = ref_data.train_batches(len(windows), cell["batch_size"],
                                    seed & 0xFFFFFFFF)
-    pixels = conf["dataset"].endswith("_pixels")
-    feats = (None if pixels else np.load(
-        os.path.join(paths["features_dir"], "features_train.npy"),
-        mmap_mode="r"))
+    feats = None
+    if offsets is None:
+        feats = np.load(os.path.join(paths["features_dir"],
+                                     "features_train.npy"), mmap_mode="r")
     out = []
     for idx in index[:steps]:
         want = {
@@ -332,9 +318,9 @@ def reference_batches(cell: dict, paths: dict, seed: int, steps: int):
             "target_lengths": np.array([windows[i]["length"] for i in idx]),
             "future_target": np.array([windows[i]["future"] for i in idx]),
         }
-        if pixels:
+        if offsets is not None:
             want["feats"] = np.stack([
-                ref_data.window_clips(windows[i]["frames"], geom["gap"],
+                ref_data.window_clips(windows[i]["frames"], offsets,
                                       conf["inputsize"]) for i in idx])
         else:
             want["feats"] = np.asarray(feats[idx], np.float32)
@@ -355,8 +341,8 @@ def batch_gaps(got: dict, want: dict, temporal: int) -> tuple[int, float]:
 
 
 def reference_steps(cell, batches, weights, seed, device, tf32=False):
-    """:func:`benchmark.reference.train.train_steps` over ``batches`` from
-    ``weights`` (both moved to ``device``)."""
+    """:func:`benchmark.reference.train.train_steps` of the cell's model
+    over ``batches`` from ``weights`` (both moved to ``device``)."""
     import torch
 
     from benchmark.reference import train as ref_train
@@ -364,6 +350,7 @@ def reference_steps(cell, batches, weights, seed, device, tf32=False):
     on = [{k: torch.as_tensor(b[k]).to(device)
            for k in ("feats", "paths", "target_lengths")} for b in batches]
     return ref_train.train_steps(
+        spec.model(cell["config"]),
         {k: v.to(device) for k, v in weights.items()}, on,
         finetune=cell["finetune"], seed=seed & 0xFFFFFFFF, tf32=tf32,
         **cell["config"]["recipe"])

@@ -1,9 +1,9 @@
-"""The whole train step: the model FLOPs of the window's steps
-(:mod:`benchmark.counts`) over the window's time, as a share of the card's
-dense float32 peak outside the tensor cores (the configuration computes in
-float32 with TF32 off)."""
+"""The whole train step: the model FLOPs of the window's steps (the
+configuration's reference module's ``step_flops``) over the window's time,
+as a share of the card's dense float32 peak outside the tensor cores (the
+configuration computes in float32 with TF32 off)."""
 
-from benchmark import counts
+from benchmark import counts, spec
 
 LAYER = "train step"
 UNIT = "%"
@@ -15,14 +15,6 @@ def read(record):
     if not steps:
         return None
     cell = record["cell"]
-    conf = cell["config"]
-    rows = cell["batch_size"] * conf["geometry"]["temporal"]
-    pixels = conf["dataset"].endswith("_pixels")
-    flops = counts.head_flops(rows, conf["feature_dim"], conf["hidden"],
-                              input_grad=pixels and cell["finetune"])
-    if pixels:
-        flops += counts.i3d_flops(rows, frames=conf["stack"],
-                                  size=conf["inputsize"],
-                                  finetune=cell["finetune"])
+    flops = spec.model(cell["config"]).step_flops(cell)
     peak = counts.peaks(record["device_name"])["fp32"]
     return 100 * flops * steps / record["window_s"] / peak

@@ -18,6 +18,8 @@ works out again from the same corpus files.
   is skipped;
 * the train batches are a seeded shuffle (``numpy.random.default_rng``)
   cut into full batches;
+* a step's clip is the frames at the model's offsets from the step's
+  anchor frame (``clip_offsets`` of its reference module);
 * a frame is decoded, its shorter side resized to ``256 / 224 * inputsize``
   bilinearly, centre-cropped to ``inputsize`` and mapped to ``[-1, 1]``.
 """
@@ -194,16 +196,16 @@ def load_frame(path: str, inputsize: int) -> np.ndarray:
     return (np.asarray(img, np.float32) / 255.0 - 0.5) / 0.5
 
 
-def window_clips(anchors, gap: int, inputsize: int,
+def window_clips(anchors, offsets, inputsize: int,
                  threads: int = 8) -> np.ndarray:
-    """``[T]`` anchor frame paths -> ``[T, STACK, h, w, 3]`` float32: each
-    anchor's stack of frames ``gap + 1`` apart."""
+    """``[T]`` anchor frame paths -> ``[T, len(offsets), h, w, 3]``
+    float32: each anchor's clip, the frames ``offsets`` after it (the
+    model's ``clip_offsets``)."""
     paths = []
     for p in anchors:
         base, first = p[:-10], int(p[-10:-4])
-        paths += [f"{base}{first + (gap + 1) * i:06d}.jpg"
-                  for i in range(STACK)]
+        paths += [f"{base}{first + o:06d}.jpg" for o in offsets]
     with ThreadPoolExecutor(threads) as pool:
         frames = list(pool.map(lambda p: load_frame(p, inputsize), paths))
-    return np.stack(frames).reshape(len(anchors), STACK, inputsize,
+    return np.stack(frames).reshape(len(anchors), len(offsets), inputsize,
                                     inputsize, 3)

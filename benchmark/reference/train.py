@@ -1,18 +1,19 @@
 """The reference's training steps, its initial weights, and the numbers
-that the benchmark holds the program to.
+that the benchmark holds the program to, for any model: what is particular
+to one (its leaves, how each starts, which optimizer moves it, its
+forward to the loss) comes from the configuration's reference module
+(:data:`benchmark.spec.MODEL_CONTRACT`), passed in as ``model``.
 
 * :func:`initial_weights` draws the model's starting point from the seed on
   the device, in one call: normals scaled by ``1 / sqrt(fan_in)`` for every
-  kernel, zeros for biases and running means, ones for BatchNorm scales and
-  running variances.  Both the program and :func:`train_steps` start from
-  it.
-* :func:`train_steps` runs the recipe's steps: the noblank loss of the
-  model in training mode (a frozen backbone in inference mode without a
-  gradient; a finetuned one in training mode), L2 weight decay added to
-  the gradient, Adam on the head (betas 0.9 / 0.999, eps 1e-8, bias
-  corrected) and SGD with momentum (no dampening) on a finetuned backbone,
-  at the first epoch's learning rate.  Dropout's masks come from a
-  ``torch.Generator`` on the device seeded as the recipe seeds its own.
+  kernel, in the order of ``shapes``; ones and zeros where ``model.init``
+  says so.  Both the program and :func:`train_steps` start from it.
+* :func:`train_steps` runs the recipe's steps: ``model.loss`` (dropout's
+  masks from a ``torch.Generator`` on the device seeded as the recipe seeds
+  its own), L2 weight decay added to the gradient, then each trained leaf
+  moved by its optimizer at the first epoch's learning rate: Adam (betas
+  0.9 / 0.999, eps 1e-8, bias corrected) or SGD with momentum (no
+  dampening).
 * :func:`compare` reduces both sides to the numbers that decide
   ``correct``.
 """
@@ -24,8 +25,6 @@ import math
 
 import torch
 
-from benchmark.reference import model as ref
-
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 #: leaves whose reference gradient is under this share of the median
@@ -33,61 +32,27 @@ ADAM_EPS = 1e-8
 STILL_LEAF = 1e-3
 
 
-def _fan_in(name: str, shape) -> int:
-    if name.endswith("recurrent_kernel"):
-        return shape[0]
-    return math.prod(shape[1:])
-
-
-def initial_weights(shapes: dict, seed: int, device) -> dict:
+def initial_weights(model, shapes: dict, seed: int, device) -> dict:
     """``{name: tensor}`` for ``shapes`` (float32 on ``device``)."""
-    kernels = [n for n, s in shapes.items()
-               if len(s) > 1 and not n.endswith("bn.weight")]
+    kinds = {n: model.init(n, s) for n, s in shapes.items()}
+    kernels = [n for n, (kind, _) in kinds.items() if kind == "kernel"]
     total = sum(math.prod(shapes[n]) for n in kernels)
     gen = torch.Generator(device=device).manual_seed(seed)
     draw = torch.randn(total, generator=gen, device=device)
     out, at = {}, 0
     for name, shape in shapes.items():
-        if name in kernels:
+        kind, fan_in = kinds[name]
+        if kind == "kernel":
             n = math.prod(shape)
-            out[name] = (draw[at:at + n].view(shape)
-                         / math.sqrt(_fan_in(name, shape)))
+            out[name] = draw[at:at + n].view(shape) / math.sqrt(fan_in)
             at += n
-        elif name.endswith(("bn.weight", "running_var")):
+        elif kind == "ones":
             out[name] = torch.ones(shape, device=device)
-        else:
+        elif kind == "zeros":
             out[name] = torch.zeros(shape, device=device)
+        else:
+            raise ValueError(f"{name}: no initialisation {kind!r}")
     return out
-
-
-def trained_leaves(weights: dict, finetune: bool) -> list[str]:
-    """The names that the recipe's optimizers move: every head parameter,
-    and with ``finetune`` the backbone's convolutions and BatchNorm
-    scales and shifts."""
-    return [n for n in weights
-            if "running_" not in n
-            and (finetune or not n.startswith("i3d."))]
-
-
-def _sub(p: dict, prefix: str) -> dict:
-    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
-
-
-def _features(p, batch, finetune, block):
-    """``[T, B, F]`` inputs of the head."""
-    feats = batch["feats"]
-    if feats.dim() == 3:
-        return feats.transpose(0, 1)
-    b, t = feats.shape[:2]
-    clips = feats.reshape((b * t,) + feats.shape[2:])
-    i3d = _sub(p, "i3d.")
-    if finetune:
-        out = ref.i3d_features(i3d, clips, train=True)
-    else:
-        with torch.no_grad():
-            out = torch.cat([ref.i3d_features(i3d, c, train=False)
-                             for c in clips.split(block)])
-    return out.reshape(b, t, -1).transpose(0, 1)
 
 
 @contextlib.contextmanager
@@ -105,41 +70,37 @@ def precision(tf32: bool):
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def train_steps(weights: dict, batches: list, *, finetune: bool, seed: int,
-                lr: float, weight_decay: float, momentum: float,
-                dropout: float, block: int = 20, tf32: bool = False) -> dict:
-    """Train ``len(batches)`` steps from ``weights``, in float32 with TF32
-    off (``tf32``: on, the control).  Returns each step's loss, the first
-    step's gradient as the optimizer receives it (L2 included), and the
-    trained leaves after the last step."""
+def train_steps(model, weights: dict, batches: list, *, finetune: bool,
+                seed: int, lr: float, weight_decay: float, momentum: float,
+                dropout: float, tf32: bool = False) -> dict:
+    """Train ``len(batches)`` steps of ``model`` from ``weights``, in
+    float32 with TF32 off (``tf32``: on, the control).  Returns each step's
+    loss, the first step's gradient as the optimizer receives it (L2
+    included), and the trained leaves after the last step."""
     with precision(tf32):
-        return _train_steps(weights, batches, finetune=finetune, seed=seed,
-                            lr=lr, weight_decay=weight_decay,
-                            momentum=momentum, dropout=dropout, block=block)
+        return _train_steps(model, weights, batches, finetune=finetune,
+                            seed=seed, lr=lr, weight_decay=weight_decay,
+                            momentum=momentum, dropout=dropout)
 
 
-def _train_steps(weights, batches, *, finetune, seed, lr, weight_decay,
-                 momentum, dropout, block):
-    names = trained_leaves(weights, finetune)
+def _train_steps(model, weights, batches, *, finetune, seed, lr,
+                 weight_decay, momentum, dropout):
+    moved_by = {n: model.optimizer(n, finetune) for n in weights}
+    names = [n for n in weights if moved_by[n]]
     p = {k: v.detach().clone() for k, v in weights.items()}
     device = next(iter(p.values())).device
     adam = {n: [torch.zeros_like(p[n]), torch.zeros_like(p[n])]
-            for n in names if not n.startswith("i3d.")}
-    trace = {n: torch.zeros_like(p[n]) for n in names if n.startswith("i3d.")}
+            for n in names if moved_by[n] == "adam"}
+    trace = {n: torch.zeros_like(p[n]) for n in names
+             if moved_by[n] == "sgd"}
     gen = torch.Generator(device=device).manual_seed(seed)
     keep = 1.0 - dropout
     b1, b2 = ADAM_BETAS
     losses, first = [], None
     for count, batch in enumerate(batches, start=1):
         leaves = {n: p[n].requires_grad_(True) for n in names}
-        feats = _features(p, batch, finetune, block)
-        t, b = feats.shape[:2]
-        head = _sub(p, "head.")
-        mask = torch.empty((t, b, head["recurrent_kernel"].shape[0]),
-                           device=device).bernoulli_(keep, generator=gen)
-        logits = ref.head_logits(head, feats, mask, keep)
-        loss = ref.noblank_loss(logits, batch["paths"],
-                                batch["target_lengths"])
+        loss = model.loss(p, batch, finetune=finetune, keep=keep,
+                          generator=gen)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         losses.append(loss.item())
         with torch.no_grad():

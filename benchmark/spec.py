@@ -4,9 +4,12 @@
 mix is ``traffic/<traffic>.json`` (the feed, the batch, the corpus and the
 steps around the window), a cell's own limits for the check are
 ``workloads/<cell>.json``, a configuration is the file its entry names, and
-a per-layer metric is read by ``metrics/<metric>.py``.  Adding a
-cell, a configuration or a metric adds files and entries; nothing here
-changes.
+a per-layer metric is read by ``metrics/<metric>.py``.  A configuration's
+file names its model's reference module (``"reference"``:
+``reference/<name>.py``, which provides :data:`MODEL_CONTRACT`) and may
+give the program's model flags (``"flags"``, appended to its argv as
+given).  Adding a cell, a configuration, a model or a metric adds files
+and entries; nothing here changes.
 """
 
 from __future__ import annotations
@@ -17,6 +20,26 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+#: what a configuration's reference module provides, all that a run needs
+#: of its model:
+#: ``shapes(conf)``: ``{reference name: shape}`` of its leaves and buffers,
+#: in the order of the initial weights' draw;
+#: ``init(name, shape)``: ``("kernel", fan_in)``, ``("ones", None)`` or
+#: ``("zeros", None)``;
+#: ``optimizer(name, finetune)``: ``"adam"``, ``"sgd"`` or None (not
+#: trained);
+#: ``ref_name(name)``: the reference name of a program state-dict entry;
+#: ``clip_offsets(conf)``: frame offsets from a step's anchor that make
+#: one clip, or None where a step's inputs are cached features;
+#: ``loss(p, batch, *, finetune, keep, generator)``: the scalar training
+#: loss of a batch under the leaves ``p``, dropout drawn from
+#: ``generator``;
+#: ``step_flops(cell)``: the model FLOPs of one train step;
+#: ``TIMED``: the attribute of the program's model whose forward the
+#: traced run times, or None.
+MODEL_CONTRACT = ("shapes", "init", "optimizer", "ref_name", "clip_offsets",
+                  "loss", "step_flops", "TIMED")
 
 
 def benchmark(root: Path = ROOT) -> dict:
@@ -57,3 +80,12 @@ def reader(metric: str, root: Path = ROOT):
     module = importlib.util.module_from_spec(module_spec)
     module_spec.loader.exec_module(module)
     return module
+
+
+def model(conf: dict):
+    """The reference module of configuration ``conf`` (a cell's
+    ``"config"``): ``reference/<conf["reference"]>.py``."""
+    name = conf["reference"]
+    if not name.isidentifier():
+        raise ValueError(f"reference {name!r} is not a module name")
+    return importlib.import_module(f"{__package__}.reference.{name}")

@@ -18,6 +18,8 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 CELLS = [w["name"] for w in B["workloads"]]
 METRICS = B["end_to_end"] + B["per_layer"]
+PARKED = [json.loads(p.read_text())["config"]
+          for p in sorted((spec.HERE / "parked").glob("*.json"))]
 
 
 def _line(text):
@@ -60,6 +62,34 @@ def test_configs(entry):
     assert path.is_file() and str(Path(entry["file"]).parts[0]) in B["paths"]
     assert any(w["config"] == entry["name"] for w in B["workloads"])
     assert sum(c["file"] == entry["file"] for c in B["configs"]) == 1
+
+
+@pytest.mark.parametrize("entry", B["configs"] + PARKED,
+                         ids=lambda c: c["name"])
+def test_configs_name_a_reference_module_with_the_whole_contract(entry):
+    conf = json.loads((ROOT / entry["file"]).read_text())
+    assert conf["reference"].isidentifier()
+    assert (spec.HERE / "reference" / f"{conf['reference']}.py").is_file()
+    model = spec.model(conf)
+    for name in spec.MODEL_CONTRACT:
+        assert hasattr(model, name), name
+        assert name.isupper() or callable(getattr(model, name)), name
+    assert model.TIMED is None or isinstance(model.TIMED, str)
+    flags = conf.get("flags", [])
+    assert isinstance(flags, list) and all(isinstance(f, str) and _line(f)
+                                           for f in flags)
+    shapes = model.shapes(conf)
+    assert shapes
+    for name, shape in shapes.items():
+        kind, fan_in = model.init(name, shape)
+        assert kind in ("kernel", "ones", "zeros"), name
+        assert (fan_in >= 1) if kind == "kernel" else fan_in is None
+        for finetune in (False, True):
+            assert model.optimizer(name, finetune) in (None, "adam", "sgd")
+    assert any(model.optimizer(n, False) for n in shapes)
+    offsets = model.clip_offsets(conf)
+    assert offsets is None or (offsets and all(
+        isinstance(o, int) and o >= 0 for o in offsets))
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from benchmark import counts
-from benchmark.reference import model as ref_model
+from benchmark.reference import i3d_lstm, lstm_head
 
 
 def test_first_convolution_by_hand():
@@ -16,7 +16,7 @@ def test_first_convolution_by_hand():
     # out, 3 x 7 x 7 x 7 = 1029 multiply-adds each
     macs = 64 * 5 * 112 * 112 * 1029
     assert macs == 4_130_488_320
-    first_only = counts.i3d_parts(1)["conv"] - counts.i3d_parts(1)[
+    first_only = i3d_lstm.i3d_parts(1)["conv"] - i3d_lstm.i3d_parts(1)[
         "conv_dgrad"]
     assert first_only == 2 * macs
 
@@ -27,8 +27,8 @@ def test_head_by_hand():
     # recurrent products' input gradients
     forward = 6_758_400 + 871_200 + 871_200 + 16_500
     backward = 6_758_400 + 2 * 871_200 + 2 * 871_200 + 2 * 16_500
-    assert counts.head_flops(100, 1024, 33) == forward + backward
-    assert counts.head_flops(100, 1024, 33, input_grad=True) == (
+    assert lstm_head.head_flops(100, 1024, 33) == forward + backward
+    assert lstm_head.head_flops(100, 1024, 33, input_grad=True) == (
         forward + backward + 6_758_400)
 
 
@@ -54,22 +54,22 @@ def test_i3d_convolutions_and_batchnorm_match_a_forward(monkeypatch):
     w = {k: (torch.ones(s) if "running_var" in k or k.endswith("bn.weight")
              else torch.zeros(s) if len(s) == 1
              else torch.randn(s) / math.sqrt(math.prod(s[1:])))
-         for k, s in ref_model.i3d_shapes().items()}
+         for k, s in i3d_lstm.i3d_shapes().items()}
     with torch.no_grad():
-        out = ref_model.i3d_features(w, torch.zeros((1, 10, 224, 224, 3)),
-                                     train=False)
+        out = i3d_lstm.i3d_features(w, torch.zeros((1, 10, 224, 224, 3)),
+                                    train=False)
     assert out.shape == (1, 1024)
-    parts = counts.i3d_parts(1)
+    parts = i3d_lstm.i3d_parts(1)
     assert parts["conv"] == 2 * seen["macs"]
     assert parts["bn"] == 2 * seen["elems"]
-    assert counts.i3d_parts(3)["conv"] == 3 * parts["conv"]
-    frozen = counts.i3d_flops(100)
+    assert i3d_lstm.i3d_parts(3)["conv"] == 3 * parts["conv"]
+    frozen = i3d_lstm.i3d_flops(100)
     assert frozen == pytest.approx(100 * (parts["conv"] + parts["pool"]
                                           + parts["bn"]))
     # finetuned: the forward, the weight gradients and every input
     # gradient but the first convolution's (2 x 4130488320 a clip)
-    p100 = counts.i3d_parts(100, finetune=True)
+    p100 = i3d_lstm.i3d_parts(100, finetune=True)
     assert p100["conv"] - p100["conv_dgrad"] == 100 * 2 * 4_130_488_320
-    assert counts.i3d_flops(100, finetune=True) == pytest.approx(
+    assert i3d_lstm.i3d_flops(100, finetune=True) == pytest.approx(
         3 * p100["conv"] - 100 * 2 * 4_130_488_320 + p100["pool"]
         + p100["pool_inputs"] + 3 * p100["bn"])

@@ -68,6 +68,29 @@ def test_a_fault_is_not_correct(fault, monkeypatch, tmp_path):
     assert not r["correct"], r["checks"]
 
 
+def _small_frozen():
+    cell = _small(spec.cell("pixels-frozen-resident"), batch_size=2,
+                  train_videos=20)
+    cell["config"] = {**cell["config"], "geometry": {
+        **cell["config"]["geometry"], "temporal": 4}}
+    return cell
+
+
+@pytest.mark.parametrize("fault, number", [
+    (unchanged_state, "change_gap_median"), (half_batch, "loss_gap_first")])
+def test_a_frozen_fault_fails_its_number(fault, number, monkeypatch,
+                                         tmp_path):
+    """The frozen cell compares the first step's loss and the median
+    leaf's gradient and change: a state left unchanged fails the change,
+    half of each batch the first loss, each by far."""
+    monkeypatch.setattr(native_loader, "build_error", "PIL, as on the card")
+    fault(monkeypatch)
+    r = _run(_small_frozen(), tmp_path)
+    check = r["checks"][number]
+    assert not r["correct"]
+    assert check["value"] > 100 * check["limit"], r["checks"]
+
+
 def test_an_altered_frame_is_not_correct(monkeypatch, tmp_path):
     """The resident cell, whose batches the data layer decodes in set-up,
     with one decoded value moved by a grey level."""
@@ -80,10 +103,6 @@ def test_an_altered_frame_is_not_correct(monkeypatch, tmp_path):
         return out
 
     monkeypatch.setattr(native_loader, "decode_frames", altered)
-    cell = _small(spec.cell("pixels-frozen-resident"), batch_size=2,
-                  train_videos=20)
-    cell["config"] = {**cell["config"], "geometry": {
-        **cell["config"]["geometry"], "temporal": 4}}
-    r = _run(cell, tmp_path)
+    r = _run(_small_frozen(), tmp_path)
     assert not r["correct"]
     assert r["checks"]["input_gap"]["value"] > 0

@@ -8,7 +8,7 @@ import torch
 
 from benchmark import corpus
 from benchmark.reference import data as ref_data
-from benchmark.reference import model as ref_model
+from benchmark.reference import i3d_lstm, lstm_head
 from benchmark.reference import train as ref_train
 from ctc_tpu_torch.data import charades, frames
 from ctc_tpu_torch.data.loading import host_shard_indices
@@ -25,8 +25,8 @@ def jpeg_corpus(tmp_path_factory):
                                val_videos=8, jpeg=True, features=False)
 
 
-def _weights(shapes, seed=11):
-    w = ref_train.initial_weights(shapes, seed, "cpu")
+def _weights(model, shapes, seed=11):
+    w = ref_train.initial_weights(model, shapes, seed, "cpu")
     # move BatchNorm and biases off their starting values, so the check
     # reaches every term
     g = torch.Generator().manual_seed(seed)
@@ -67,14 +67,15 @@ def test_decoded_frames_match_the_port(jpeg_corpus):
         jpeg_corpus["rgb_data"], temporal=10, gap=2,
         num_trans=2)[0]["frames"][:2]
     want = frames.load_window(anchors, 2, inputsize=224)
-    np.testing.assert_array_equal(ref_data.window_clips(anchors, 2, 224),
-                                  want)
+    np.testing.assert_array_equal(ref_data.window_clips(
+        anchors, i3d_lstm.clip_offsets(
+            {"geometry": {"gap": 2}, "stack": 10}), 224), want)
 
 
 @pytest.mark.parametrize("train", [False, True])
 def test_i3d_matches_the_port(train):
-    shapes = ref_model.i3d_shapes()
-    w = _weights(shapes)
+    shapes = i3d_lstm.i3d_shapes()
+    w = _weights(i3d_lstm, shapes)
     port = InceptionI3d(num_classes=None)
     state = {k: w[k] for k in shapes}
     state.update({k: torch.zeros((), dtype=torch.long)
@@ -84,7 +85,7 @@ def test_i3d_matches_the_port(train):
                         generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         got = port(clips[:, None], train=train)[:, 0]
-        want = ref_model.i3d_features(w, clips, train=train)
+        want = i3d_lstm.i3d_features(w, clips, train=train)
     assert got.shape == want.shape == (2, 1024)
     # batch statistics as E[x^2] - E[x]^2 cancel in float32, so the two
     # orders of summation part further in training mode
@@ -93,9 +94,8 @@ def test_i3d_matches_the_port(train):
 
 
 def test_head_and_loss_match_the_port():
-    shapes = {f"head.{k}": v for k, v in ref_model.head_shapes(64, 33)
-              .items()}
-    w = _weights(shapes)
+    shapes = lstm_head.shapes({"feature_dim": 64, "hidden": 33})
+    w = _weights(lstm_head, shapes)
     port = LSTMHead(64, 33, dropout_rate=0.3)
     port.load_state_dict({k[5:]: v for k, v in w.items()})
     g = torch.Generator().manual_seed(2)
@@ -106,11 +106,11 @@ def test_head_and_loss_match_the_port():
     got = port(feats, train=True, generator=torch.Generator().manual_seed(5))
     mask = torch.empty((10, 6, 33)).bernoulli_(
         0.7, generator=torch.Generator().manual_seed(5))
-    want = ref_model.head_logits({k[5:]: v for k, v in w.items()}, feats,
+    want = lstm_head.head_logits({k[5:]: v for k, v in w.items()}, feats,
                                  mask, 0.7)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     logits = want.detach().requires_grad_(True)
-    ref_loss = ref_model.noblank_loss(logits, paths, lengths)
+    ref_loss = lstm_head.noblank_loss(logits, paths, lengths)
     port_logits = want.detach().requires_grad_(True)
     port_loss = no_blank_ctc_loss(port_logits, paths,
                                   torch.full((6,), 10), lengths)
@@ -173,9 +173,8 @@ def test_optimizer_steps_match_the_port(finetune):
 def test_reference_steps_match_the_port_model():
     """:func:`train_steps` against the port's model and optimizer stepped
     by hand on the same batch, head on features."""
-    shapes = {f"head.{k}": v for k, v in ref_model.head_shapes(32, 33)
-              .items()}
-    w = ref_train.initial_weights(shapes, 4, "cpu")
+    shapes = lstm_head.shapes({"feature_dim": 32, "hidden": 33})
+    w = ref_train.initial_weights(lstm_head, shapes, 4, "cpu")
     g = torch.Generator().manual_seed(6)
     batches = []
     for _ in range(3):
@@ -184,7 +183,8 @@ def test_reference_steps_match_the_port_model():
         paths[torch.arange(10)[None, :] >= lengths[:, None]] = -1
         batches.append({"feats": torch.randn((4, 10, 32), generator=g),
                         "paths": paths, "target_lengths": lengths})
-    ref = ref_train.train_steps(w, batches, finetune=False, seed=9,
+    ref = ref_train.train_steps(lstm_head, w, batches, finetune=False,
+                                seed=9,
                                 lr=1e-3, weight_decay=1e-4, momentum=0.9,
                                 dropout=0.3)
     model = LSTMHead(32, 33, dropout_rate=0.3)
@@ -215,9 +215,9 @@ def test_reference_steps_match_the_port_model():
 def test_pixels_model_names_are_the_references():
     model = I3DLSTM(hidden=33)
     names = {k for k in model.state_dict() if not k.endswith("tracked")}
-    want = {f"i3d.{k}" for k in ref_model.i3d_shapes()}
-    want |= {f"head.{k}" for k in ref_model.head_shapes(1024, 33)}
+    want = {f"i3d.{k}" for k in i3d_lstm.i3d_shapes()}
+    want |= {f"head.{k}" for k in lstm_head.head_shapes(1024, 33)}
     assert names == want
     for k, t in model.state_dict().items():
         if k.startswith("i3d.") and not k.endswith("tracked"):
-            assert tuple(t.shape) == ref_model.i3d_shapes()[k[4:]]
+            assert tuple(t.shape) == i3d_lstm.i3d_shapes()[k[4:]]
