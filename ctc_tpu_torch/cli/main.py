@@ -13,8 +13,10 @@ axis ``--data-parallel`` / ``--num-hosts`` / ``--host-id`` /
 for a Charades dataset without ``--features-dir``).
 
 A ``*_pixels`` dataset trains :class:`ctc_tpu_torch.models.I3DLSTM` (the
-I3D in every step, frozen unless ``--finetune-i3d``); any other trains the
-LSTM head on features.  ``--compute-dtype bf16`` runs the head's two
+I3D in every step, frozen unless ``--finetune-i3d``), or with ``--rgb-arch
+timesformer`` :class:`ctc_tpu_torch.models.TimeSformerLSTM` (TimeSformer
+in the I3D's place, on 8-frame clips); any other trains the LSTM head on
+features.  ``--compute-dtype bf16`` runs the head's two
 matmuls in bf16, or in pixels mode the I3D's convolutions (the head stays
 f32 there).  Float32 convolutions and matmuls run in full float32 on the
 card (TF32 off).
@@ -48,7 +50,12 @@ from dataclasses import dataclass
 import torch
 
 from ctc_tpu_torch import config as config_lib
-from ctc_tpu_torch.models import I3DLSTM, LSTMHead, full_f32_precision
+from ctc_tpu_torch.models import (
+    I3DLSTM,
+    LSTMHead,
+    TimeSformerLSTM,
+    full_f32_precision,
+)
 from ctc_tpu_torch.train import Trainer, resolve_device
 from ctc_tpu_torch.utils import Tee, seed_everything
 from ctc_tpu_torch.utils.profiling import span
@@ -167,9 +174,15 @@ def make_video_eval(cfg):
 
 
 def build_model(cfg):
-    """``I3DLSTM`` for a ``*_pixels`` dataset, else ``LSTMHead``, with the
+    """The pixels model of ``--rgb-arch`` for a ``*_pixels`` dataset
+    (``I3DLSTM`` or ``TimeSformerLSTM``), else ``LSTMHead``, with the
     compute dtypes the flags ask for."""
     dtype = torch.bfloat16 if cfg.compute_dtype == "bf16" else None
+    if cfg.dataset.endswith("_pixels") and cfg.rgb_arch == "timesformer":
+        return TimeSformerLSTM(
+            hidden=cfg.head_classes, dropout_rate=cfg.dropout,
+            freeze_backbone=not cfg.finetune_i3d, feat_chunk=cfg.i3d_chunk,
+            img_size=cfg.inputsize)
     if cfg.dataset.endswith("_pixels"):
         return I3DLSTM(
             hidden=cfg.head_classes, dropout_rate=cfg.dropout,
@@ -414,7 +427,8 @@ def run(cfg, device, mesh=None):
     if pixels and cfg.rgb_pretrained_weights:
         model.load_backbone(torch.load(cfg.rgb_pretrained_weights,
                                        map_location="cpu"))
-        print("loaded pretrained I3D backbone")
+        name = "TimeSformer" if cfg.rgb_arch == "timesformer" else "I3D"
+        print(f"loaded pretrained {name} backbone")
     start_epoch = cfg.start_epoch
     if cfg.resume:
         from ctc_tpu_torch.train import checkpoints as ckpt

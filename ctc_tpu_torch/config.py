@@ -12,6 +12,13 @@ import dataclasses
 import os
 from dataclasses import dataclass
 
+#: ``--rgb-arch``: the pixels model's clip backbone
+RGB_ARCHS = {
+    "i3d": "Inception-v1 I3D, 1024-d features of 10-frame clips (default)",
+    "timesformer": "TimeSformer ViT-B/16, divided space-time attention, "
+                   "768-d features of 8-frame clips",
+}
+
 
 @dataclass
 class Config:
@@ -103,6 +110,11 @@ class Config:
         if self.lattice_impl not in (None, "torch", "cuda"):
             raise ValueError("--lattice-impl must be torch or cuda, got "
                              f"{self.lattice_impl!r}")
+        if self.rgb_arch not in RGB_ARCHS:
+            raise ValueError(f"--rgb-arch must be one of {sorted(RGB_ARCHS)}, "
+                             f"got {self.rgb_arch!r}")
+        if self.rgb_arch == "timesformer":
+            self._check_timesformer()
         self.cache = os.path.join(self.cache_dir, self.name) + os.sep
         os.makedirs(self.cache, exist_ok=True)
         # fail at parse time: the chunked I3D extraction needs a frozen
@@ -121,6 +133,23 @@ class Config:
                     f"batch_size*temporal = {folded}"
                 )
         return self
+
+    def _check_timesformer(self) -> None:
+        """Refuse, before any work, the flags that the TimeSformer backbone
+        does not take."""
+        refused = []
+        if not self.dataset.endswith("_pixels"):
+            refused.append(f"--dataset {self.dataset} (a *_pixels dataset "
+                           "only: feature extraction and cached features "
+                           "are the I3D's)")
+        if self.compute_dtype != "f32":
+            refused.append(f"--compute-dtype {self.compute_dtype}")
+        if self.i3d_act_dtype != "f32":
+            refused.append(f"--i3d-act-dtype {self.i3d_act_dtype}")
+        if refused:
+            raise ValueError(f"--rgb-arch {self.rgb_arch} runs in float32 "
+                             "on a *_pixels dataset; it does not take "
+                             + ", ".join(refused))
 
     @property
     def head_classes(self) -> int:
@@ -147,7 +176,12 @@ def parse(argv=None) -> Config:
         if f.name == "cache":
             continue
         flag = "--" + f.name.replace("_", "-")
-        if isinstance(f.default, bool):
+        if f.name == "rgb_arch":
+            parser.add_argument(
+                flag, choices=sorted(RGB_ARCHS), default=f.default,
+                help="the pixels model's clip backbone: " + "; ".join(
+                    f"{k}: {v}" for k, v in RGB_ARCHS.items()))
+        elif isinstance(f.default, bool):
             parser.add_argument(flag, action="store_true", default=f.default)
         else:
             # None-defaulted optional ints (--data-parallel) parse as ints

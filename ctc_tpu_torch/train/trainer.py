@@ -18,10 +18,11 @@ process group, :mod:`ctc_tpu_torch.parallel`).
   as one unit (:mod:`ctc_tpu_torch.train.graphs`): one CUDA graph replay
   on the card; the sub-K remainder and groups of unequal shapes run single
   steps.
-* ``i3d_optimizer`` (pixels mode, :class:`ctc_tpu_torch.models.I3DLSTM`)
-  splits the parameters as ``ctc_tpu``'s ``multi_transform`` does: Adam on
-  the head, SGD (:class:`ctc_tpu_torch.train.optim.TorchStyleSGD`) on the
-  backbone under ``finetune``, nothing on a frozen backbone.
+* ``i3d_optimizer`` (pixels mode, :class:`ctc_tpu_torch.models.I3DLSTM`
+  or ``TimeSformerLSTM``) splits the parameters as ``ctc_tpu``'s
+  ``multi_transform`` does: Adam on the head, SGD
+  (:class:`ctc_tpu_torch.train.optim.TorchStyleSGD`) on the backbone under
+  ``finetune``, nothing on a frozen backbone.
 * Dropout draws its masks from the trainer's own ``torch.Generator``
   (on a data mesh, seeded apart on each rank).
 * Everything runs on one explicit device, ``cuda`` unless the caller asks
@@ -262,7 +263,8 @@ class Trainer:
 
     ``i3d_optimizer`` (``{"lr", "momentum", "weight_decay", "finetune"}``,
     ``ctc_tpu``'s dict) trains the pixels model: Adam on the head; with
-    ``finetune``, SGD on the backbone (parameters named ``i3d.*``) from
+    ``finetune``, SGD on the backbone (parameters named ``i3d.*`` or
+    ``timesformer.*``) from
     the same step-decay schedule at its own ``lr``; without it the
     backbone is in no optimizer group, and on a mesh it stays out of the
     gradient exchange.

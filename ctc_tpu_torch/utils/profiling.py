@@ -40,7 +40,13 @@ Every span is named ``ctc/<layer>/...`` after the port's layers: ``data``
 A span records its name, its start and end (``time.time_ns()``, the clock
 of ``torch.profiler``'s events), the span it opened inside (on the same
 thread), its thread and the trainer's step it belongs to (None before the
-first step: set-up).
+first step: set-up).  A span opened with a CUDA ``device``
+(``span(name, device=x.device)``: the TimeSformer backbone's parts,
+``ctc/models/timesformer/*``) also records CUDA events on
+that device's current stream at its start and end, and gives the device
+seconds between them as ``device_s`` (which waits for the end event);
+every other span's ``device_s`` is None, and it records no event.  No
+event is recorded while the stream captures a CUDA graph.
 
 When spans are kept
 -------------------
@@ -95,6 +101,8 @@ class Span:
 
     __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "step",
                  "_range")
+    #: device seconds between the span's start and end, where it timed them
+    device_s = None
 
     def __init__(self, name: str):
         self.name = name
@@ -122,6 +130,38 @@ class Span:
         _stack().pop()
         _keep(self)
         return False
+
+
+class DeviceSpan(Span):
+    """A :class:`Span` that also times its block on a CUDA device."""
+
+    __slots__ = ("_stream", "_events")
+
+    def __init__(self, name: str, device: torch.device):
+        super().__init__(name)
+        self._stream = torch.cuda.current_stream(device)
+        self._events = None
+
+    def __enter__(self):
+        super().__enter__()
+        if not torch.cuda.is_current_stream_capturing():
+            self._events = [torch.cuda.Event(enable_timing=True), None]
+            self._events[0].record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[1] = torch.cuda.Event(enable_timing=True)
+            self._events[1].record(self._stream)
+        return super().__exit__(*exc)
+
+    @property
+    def device_s(self) -> float | None:
+        if self._events is None or self._events[1] is None:
+            return None
+        start, end = self._events
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
 
 
 class _Off:
@@ -159,10 +199,15 @@ def _keep(s: Span) -> None:
             _kept.append(s)
 
 
-def span(name: str):
+def span(name: str, device: torch.device | None = None):
     """A span named ``name`` (``ctc/<layer>/...``) over the enclosed block,
-    or :data:`OFF` where it would not be kept."""
-    return Span(name) if _keeping() else OFF
+    or :data:`OFF` where it would not be kept.  With a CUDA ``device`` it
+    also times the block there (:class:`DeviceSpan`)."""
+    if not _keeping():
+        return OFF
+    if device is not None and device.type == "cuda":
+        return DeviceSpan(name, device)
+    return Span(name)
 
 
 def record(on: bool) -> None:

@@ -2,8 +2,9 @@
 shared no-op; on, spans nest by thread and carry the trainer's step; their
 times lie on the profiler's clock; a process keeps its set-up's spans
 unswitched, and at most ``KEPT`` of a name; and the program opens them where its layers meet (the CLI's
-set-up, each step's phases, the I3D's endpoints), also into a
-``--profile-dir`` trace."""
+set-up, each step's phases, the I3D's endpoints, the TimeSformer's parts
+of each block, timed on the device too where it runs on a card), also
+into a ``--profile-dir`` trace."""
 
 import json
 import sys
@@ -17,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from ctc_tpu_torch.cli.main import main
 from ctc_tpu_torch.data.loading import Prefetcher
 from ctc_tpu_torch.models.i3d import ENDPOINTS, InceptionI3d
+from ctc_tpu_torch.models.timesformer import TimeSformer
 from ctc_tpu_torch.utils import profiling
 from ctc_tpu_torch.utils.profiling import span
 
@@ -227,6 +229,54 @@ def test_i3d_opens_one_span_per_endpoint(recorder):
     assert [s.name for s in kept] == want + ["ctc/models/i3d/avg_pool",
                                              "ctc/models/i3d"]
     assert all(s.parent is kept[-1] for s in kept[:-1])
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_timesformer_keeps_its_parts_of_each_block(recorder, request,
+                                                   device):
+    """Under ``record(True)`` a forward of the 12 blocks keeps 12
+    ``temporal``, ``spatial`` and ``mlp`` spans inside
+    ``ctc/models/timesformer``, beside ``embed`` and ``norm``; each has a
+    device time on the card and none on the CPU."""
+    if device == "cuda":
+        request.getfixturevalue("card")
+    recorder.record(True)
+    model = TimeSformer(img_size=32, frames=2, dim=64, depth=12,
+                        num_heads=1).to(device)
+    with torch.no_grad():
+        model(torch.zeros((1, 2, 2, 32, 32, 3), device=device))
+    kept = recorder.spans()
+    top = kept[-1]
+    assert top.name == "ctc/models/timesformer" and top.device_s is None
+    parts = [s.name.rsplit("/", 1)[1] for s in kept[:-1]]
+    assert parts == ["embed"] + ["temporal", "spatial", "mlp"] * 12 + [
+        "norm"]
+    assert all(s.parent is top for s in kept[:-1])
+    for s in kept[:-1]:
+        if device == "cuda":
+            assert s.device_s > 0
+        else:
+            assert s.device_s is None
+
+
+def test_device_spans_off_are_the_shared_no_op(recorder):
+    """With the recorder off a span that would time the device is the
+    same no-op as any other, and a forward keeps nothing."""
+    recorder.set_step(1)
+    for device in (torch.device("cpu"), torch.device("cuda")):
+        assert span("ctc/models/timesformer/temporal",
+                    device=device) is profiling.OFF
+    with torch.no_grad():
+        TimeSformer(img_size=32, frames=2, dim=64, depth=2, num_heads=1)(
+            torch.zeros((1, 1, 2, 32, 32, 3)))
+    assert recorder.spans() == []
 
 
 def test_profile_dir_trace_holds_the_spans(recorder, tmp_path):
